@@ -1,0 +1,8 @@
+"""Components registered on import: the bead path's pipeline stages."""
+
+from magnify_tpu_torch.components import (  # noqa: F401
+    find,
+    postprocess,
+    preprocess,
+    stitch,
+)

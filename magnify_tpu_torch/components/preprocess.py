@@ -1,0 +1,149 @@
+"""Preprocessing components: canonical layout and flat-field correction.
+
+Host numpy code copied from ``magnify_tpu.components.preprocess``:
+``standardize_format`` and ``flatfield_correct`` with scalar or array
+fields. Path fields, ``rotate`` and ``basic_correct`` are not ported yet
+(ROADMAP, queue 1).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from magnify_tpu_torch.core import DataArray, Dataset, Variable
+from magnify_tpu_torch.core.lazy import ChunkedArray
+from magnify_tpu_torch.core.registry import component
+
+STANDARD_DIMS = ["channel", "time", "tile_row", "tile_col", "tile_y", "tile_x"]
+
+
+@component("standardize_format")
+def standardize_format(xp):
+    """Normalize any input layout into the canonical 6-D tile stack.
+
+    Same dim gymnastics as magnify/preprocess.py:11-41:
+    rename x/y/row/col to tile_*, fold extra dims into time (renaming a real
+    time dim to __time__ first), add missing dims, record the original order
+    in ``__original_tile_dims__`` for restore_format, and transpose to
+    (channel, time, tile_row, tile_col, tile_y, tile_x).
+    """
+    if isinstance(xp, DataArray):
+        ds = Dataset({"tile": xp}, attrs=xp.attrs)
+        xp = ds
+
+    renames = {old: "tile_" + old for old in ["x", "y", "row", "col"]
+               if old in xp.tile.dims}
+    if renames:
+        xp = xp.rename(renames)
+
+    xp.attrs["__original_tile_dims__"] = list(xp.tile.dims)
+
+    extra_dims = [d for d in xp.tile.dims if d not in STANDARD_DIMS]
+    if extra_dims:
+        if "time" in xp.tile.dims:
+            xp = xp.rename({"time": "__time__"})
+            extra_dims.append("__time__")
+        xp = xp.stack(time=tuple(extra_dims))
+
+    tile = xp["tile"]
+    for dim in STANDARD_DIMS:
+        if dim not in tile.dims:
+            tile = tile.expand_dims(dim)
+    xp["tile"] = tile
+
+    return xp.transpose(*STANDARD_DIMS, missing_dims="ignore")
+
+
+def _load_field(value):
+    """A scalar or array correction field; paths wait for the io port."""
+    if isinstance(value, os.PathLike | str):
+        raise NotImplementedError(
+            "flat/dark fields given as paths need the io port (ROADMAP "
+            "queue 1: io); pass a scalar or an array"
+        )
+    return value
+
+
+@component("flatfield_correct")
+def flatfield_correct(xp, flatfield=1.0, darkfield=0.0):
+    """Illumination correction: ``clip(tile - darkfield) / flatfield``,
+    rescaled to preserve the maximum and cast back to the input dtype
+    (reference preprocess.py:62-88). Scalar or array corrections are
+    accepted (paths wait for the io port); lazy tiles stay lazy (two chunk
+    passes: one reduction for the rescale factors, one deferred map).
+    """
+    flatfield = _load_field(flatfield)
+    darkfield = _load_field(darkfield)
+    if isinstance(flatfield, DataArray):
+        flatfield = flatfield.values
+    if isinstance(darkfield, DataArray):
+        darkfield = darkfield.values
+
+    # Identity correction (the pipeline defaults): mathematically a no-op on
+    # non-negative data — skip the passes entirely. Unsigned dtypes are
+    # non-negative by construction; eager signed/float data gets one cheap
+    # min() check (the clip-at-zero still matters when negatives exist).
+    identity = (np.isscalar(flatfield) and flatfield == 1.0
+                and np.isscalar(darkfield) and darkfield == 0.0)
+    if identity:
+        if np.issubdtype(np.dtype(xp["tile"].dtype), np.unsignedinteger):
+            return xp
+        data = xp["tile"].data
+        if (not isinstance(data, ChunkedArray)
+                and np.asarray(data).size > 0
+                and np.asarray(data).min() >= 0):
+            return xp
+
+    tile_var = xp["tile"]
+    dtype = tile_var.dtype
+    data = tile_var.data
+    # float32 keeps uint16/float32 data exact; only widen for f64 inputs.
+    work_dtype = np.result_type(dtype, np.float32)
+
+    def corrected(block):
+        return np.clip(block.astype(work_dtype) - darkfield, 0, None)
+
+    if isinstance(data, ChunkedArray):
+        if np.isscalar(flatfield) and flatfield == 1.0:
+            # Unit flatfield: the rescale factor is exactly 1 (max_pre and
+            # max_post are maxima of the SAME array), so the eager global-
+            # max passes would read the whole lazy stack for nothing.
+            # Defer the darkfield clip as a single chunk map — zero eager
+            # reads; out-of-core stacks stay on disk.
+            out = data.map_chunks(
+                lambda b: corrected(b).astype(dtype), dtype=dtype,
+            )
+            xp["tile"] = Variable(tile_var.dims, out, tile_var.attrs)
+            return xp
+        # Pass 1: the two global maxima that set the rescale factor.
+        max_pre = -np.inf
+        max_post = -np.inf
+        for idx in np.ndindex(*data.numblocks):
+            block = corrected(data._block(idx))
+            max_pre = max(max_pre, block.max(initial=-np.inf))
+            max_post = max(max_post, (block / flatfield).max(initial=-np.inf))
+        scale = max_pre / max_post if max_post > 0 else 1.0
+
+        out = data.map_chunks(
+            lambda b: ((corrected(b) / flatfield) * scale).astype(dtype),
+            dtype=dtype,
+        )
+        xp["tile"] = Variable(tile_var.dims, out, tile_var.attrs)
+    else:
+        pre = corrected(np.asarray(data))
+        if np.isscalar(flatfield) and flatfield == 1.0:
+            # Unit flatfield: the rescale factor is exactly 1 and the
+            # divide/multiply passes are identities — only the darkfield
+            # clip (already applied) matters.
+            xp["tile"] = Variable(tile_var.dims, pre.astype(dtype),
+                                  tile_var.attrs)
+            return xp
+        max_pre = pre.max(initial=-np.inf)
+        post = pre / flatfield
+        max_post = post.max(initial=-np.inf)
+        scale = max_pre / max_post if max_post > 0 else 1.0
+        xp["tile"] = Variable(tile_var.dims, (post * scale).astype(dtype),
+                              tile_var.attrs)
+    return xp

@@ -1,0 +1,191 @@
+"""Edge-detection stack: blur -> Scharr -> exact quantiles -> Canny.
+
+Torch port of ``magnify_tpu.ops.edge`` on the dense detector's path,
+bit-identical to it: the 5-tap Gaussian blur rounds to uint8 values, Scharr
+runs on the rounded blur, the Canny thresholds are exact order statistics
+of the f32 gradient magnitude interpolated as ``np.quantile`` does, and
+Canny quantizes gradients to int16 (trunc) and compares squared magnitudes
+against squared thresholds with OpenCV's fixed-point sector tests.
+
+Every sum below is written as eager ops in the reference's order (no
+``addcmul``/``alpha=``/compile). Where the reference's compiled program
+contracts a multiply-add into one fused multiply-add (XLA on the CPU does,
+inside ``jit``), the port computes that FMA exactly with :func:`fma_f32`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from magnify_tpu_torch.ops.hysteresis import hysteresis
+
+__all__ = [
+    "canny",
+    "canny_nms",
+    "edge_pipeline",
+    "fma_f32",
+    "gaussian_blur5_u8",
+    "histogram_quantiles",
+    "scharr",
+    "sqrt_f32",
+]
+
+# OpenCV's fixed 5-tap Gaussian for ksize=5, sigma=0: [1, 4, 6, 4, 1] / 16.
+_GAUSS5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
+_SMOOTH = np.array([3.0, 10.0, 3.0], dtype=np.float32)
+_DERIV = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
+_TG22 = 13573  # tan(22.5 deg) in Q15, as used by OpenCV's Canny.
+
+
+def _sepconv(img: torch.Tensor, krow, kcol) -> torch.Tensor:
+    """Separable 2-D correlation with BORDER_REFLECT_101 semantics."""
+    ph, pw = len(krow) // 2, len(kcol) // 2
+    x = F.pad(img[None, None], (pw, pw, ph, ph), mode="reflect")[0, 0]
+    h, w = img.shape
+    out = torch.zeros((h, w + 2 * pw), dtype=torch.float32, device=img.device)
+    for i, kv in enumerate(krow):
+        if kv != 0.0:
+            out = out + float(kv) * x[i:i + h, :]
+    out2 = torch.zeros((h, w), dtype=torch.float32, device=img.device)
+    for j, kv in enumerate(kcol):
+        if kv != 0.0:
+            out2 = out2 + float(kv) * out[:, j:j + w]
+    return out2
+
+
+def gaussian_blur5_u8(img_u8: torch.Tensor) -> torch.Tensor:
+    """5x5 Gaussian blur on uint8-valued data, rounded (half to even)."""
+    return torch.round(_sepconv(img_u8.to(torch.float32), _GAUSS5, _GAUSS5))
+
+
+def scharr(img: torch.Tensor):
+    """Scharr dx, dy (float32), matching cv.Scharr's kernels and borders."""
+    return _sepconv(img, _SMOOTH, _DERIV), _sepconv(img, _DERIV, _SMOOTH)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root (the IEEE operation XLA
+    emits). Torch's vectorized f32 CPU sqrt is off by one ulp on ~0.5% of
+    inputs, which could move a quantile threshold; the f64 root rounded
+    to f32 is exact on every device."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors with ONE rounding, as an FMA unit does.
+
+    The product of two f32 values is exact in f64; the f64 sum is made
+    round-to-odd from its exact error term (TwoSum), and rounding that to
+    f32 is then the correctly rounded result (f64 carries more than the
+    24 + 2 bits this needs). Plain f64 ops, so every device agrees.
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    bits = s.view(torch.int64)
+    to_odd = (err != 0) & ((bits & 1) == 0)
+    # One f64 ulp toward the exact sum: toward larger magnitude when the
+    # error has the sign of s.
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where(to_odd, bits + step, bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def histogram_quantiles(values: torch.Tensor, qs) -> torch.Tensor:
+    """Exact quantiles with ``np.quantile``'s linear interpolation.
+
+    The k-th and (k+1)-th order statistics come from one sort; the rank
+    ``q * (n - 1)``, its floor and its fraction are f32 exactly as the
+    reference computes them, and the interpolation
+    ``x_k + frac * (x_k1 - x_k)`` ends in one FMA, as the reference's
+    compiled program evaluates it.
+    """
+    flat = values.reshape(-1)
+    n = flat.shape[0]
+    rank = np.asarray(qs, np.float32).reshape(-1) * np.float32(n - 1)
+    k = np.clip(np.floor(rank).astype(np.int64), 0, n - 1)
+    frac = rank - k.astype(np.float32)
+    k1 = np.minimum(k + 1, n - 1)
+    srt = torch.sort(flat).values
+    x_k = srt[torch.as_tensor(k, device=flat.device)]
+    x_k1 = srt[torch.as_tensor(k1, device=flat.device)]
+    frac_t = torch.as_tensor(frac, device=flat.device)
+    return fma_f32(frac_t, x_k1 - x_k, x_k)
+
+
+def canny_nms(dx: torch.Tensor, dy: torch.Tensor, low_thresh: torch.Tensor,
+              high_thresh: torch.Tensor):
+    """Sector non-max-suppression + double threshold; returns (strong, weak).
+
+    OpenCV's fixed-point sector tests on int16-quantized gradients with L2
+    squared magnitudes, compared as f32 (``mag`` can exceed 2^24).
+    """
+    xs = torch.clamp(torch.trunc(dx), -32768, 32767).to(torch.int32)
+    ys = torch.clamp(torch.trunc(dy), -32768, 32767).to(torch.int32)
+    mag = xs * xs + ys * ys
+    low2 = low_thresh.to(torch.float32) ** 2
+    high2 = high_thresh.to(torch.float32) ** 2
+    magf = mag.to(torch.float32)
+
+    h, w = magf.shape
+    mp = F.pad(magf, (1, 1, 1, 1))
+
+    def shift(dr, dc):
+        return mp[1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
+
+    left, right = shift(0, -1), shift(0, 1)
+    up, down = shift(-1, 0), shift(1, 0)
+    ul, ur = shift(-1, -1), shift(-1, 1)
+    dl, dr_ = shift(1, -1), shift(1, 1)
+
+    x_abs = torch.abs(xs)
+    y_q15 = torch.abs(ys) << 15
+    tg22x = x_abs * _TG22
+    tg67x = tg22x + (x_abs << 16)
+
+    horiz = y_q15 < tg22x
+    vert = y_q15 > tg67x
+    same_sign = (xs ^ ys) >= 0
+
+    keep_h = (magf > left) & (magf >= right)
+    keep_v = (magf > up) & (magf >= down)
+    keep_d_same = (magf > ul) & (magf > dr_)
+    keep_d_diff = (magf > ur) & (magf > dl)
+
+    keep = torch.where(
+        horiz, keep_h,
+        torch.where(vert, keep_v,
+                    torch.where(same_sign, keep_d_same, keep_d_diff)),
+    )
+    cand = (magf > low2) & keep
+    strong = cand & (magf > high2)
+    return strong, cand
+
+
+def canny(dx, dy, low_thresh, high_thresh):
+    """Canny edges: sector NMS, double threshold, then hysteresis."""
+    strong, weak = canny_nms(dx, dy, low_thresh, high_thresh)
+    return hysteresis(strong, weak)
+
+
+def edge_pipeline(img_u8: torch.Tensor, low_edge_quantile: float,
+                  high_edge_quantile: float):
+    """blur -> Scharr -> quantile thresholds -> Canny on uint8-valued data.
+
+    The counterpart of ``magnify_tpu.ops.edge.edge_pipeline(...,
+    normalized=True)``: the caller has already normalized the plane to
+    uint8 values (:func:`magnify_tpu_torch.ops.detect.normalize_planes_u8`).
+    Returns (edges bool, dx, dy); the dense detector never reads the
+    gradient angles, so they are not computed.
+    """
+    blurred = gaussian_blur5_u8(img_u8)
+    dx, dy = scharr(blurred)
+    grad = sqrt_f32(dx * dx + dy * dy)
+    low_t, high_t = histogram_quantiles(
+        grad, [np.float32(low_edge_quantile), np.float32(high_edge_quantile)])
+    edges = canny(dx, dy, low_t, high_t)
+    return edges, dx, dy

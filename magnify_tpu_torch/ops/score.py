@@ -1,0 +1,238 @@
+"""Dense roundness scoring: int8 ring-correlation score maps.
+
+The reference's per-pixel alignment score ``4*|wrap(|a - e|) - pi/2|/pi - 1``
+equals ``(8/pi^2) * sum_{k odd} cos(2k (a - e)) / k^2``, which separates the
+image angle ``a`` from the ring angle ``e``: scoring every (center, radius)
+becomes a correlation of per-harmonic features ``edge * (cos 2ka, sin 2ka)``
+with a ring kernel per radius. Torch port of the int8, unfolded (s2d = 1)
+form of ``magnify_tpu.ops.score.score_maps``; the int8 maps do not depend
+on the space-to-depth fold, so the fold is not carried over.
+
+The ring kernels are built by numpy code copied from the JAX package and
+are array-equal to its tables (harmonics k <= 7, the JAX default). The
+correlation itself is the CUDA kernel ``csrc/ring_corr.cu`` for CUDA
+tensors and a float64 ``conv2d`` (exact on int8 values) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from magnify_tpu_torch import _build, utils
+from magnify_tpu_torch.ops.edge import fma_f32
+
+__all__ = ["RingWeights", "ring_corr", "ring_corr_plain", "ring_weights",
+           "score_maps"]
+
+_HARMONICS = (1, 3, 5, 7)
+_COEFFS = tuple(8.0 / (np.pi**2 * k**2) for k in _HARMONICS)
+
+#: Kernel launches of :func:`ring_corr` since the count was last reset.
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_conv_kernel(min_radius: int, max_radius: int) -> np.ndarray:
+    """Conv kernel (n_radii, 2*len(H), K, K) for ring-correlation scoring.
+
+    Input channels alternate (edge*cos(2ka), edge*sin(2ka)) per harmonic;
+    output channel r_idx accumulates sum_k c_k * [cos term + sin term] over
+    the Bresenham ring of radius min_radius + r_idx, normalized by ring
+    length.
+    """
+    n_radii = max_radius - min_radius + 1
+    size = 2 * max_radius + 1
+    kernel = np.zeros((n_radii, 2 * len(_HARMONICS), size, size), np.float32)
+    for ri in range(n_radii):
+        r = min_radius + ri
+        ring = utils.circle_points(r)
+        angles = np.arctan2(ring[:, 0], ring[:, 1])
+        inv_len = 1.0 / len(ring)
+        for hi, (k, c) in enumerate(zip(_HARMONICS, _COEFFS)):
+            kernel[ri, 2 * hi, max_radius + ring[:, 0],
+                   max_radius + ring[:, 1]] += c * inv_len * np.cos(
+                       2 * k * angles)
+            kernel[ri, 2 * hi + 1, max_radius + ring[:, 0],
+                   max_radius + ring[:, 1]] += c * inv_len * np.sin(
+                       2 * k * angles)
+    return kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_conv_kernel_q8(min_radius: int, max_radius: int):
+    """Symmetric per-radius int8 quantization of the ring kernel: returns
+    (q int8 (n_radii, C, K, K), scale f32 (n_radii,)), ``w ~= q*scale/127``.
+    """
+    k = _ring_conv_kernel(min_radius, max_radius)
+    amax = np.abs(k).max(axis=(1, 2, 3))
+    scale = np.where(amax > 0, amax, 1.0).astype(np.float32)
+    q = np.round(k / scale[:, None, None, None] * 127.0).astype(np.int8)
+    return q, scale
+
+
+def compact_taps(q: np.ndarray):
+    """Nonzero taps of an int8 kernel (n_radii, C, K, K), per radius.
+
+    Returns (taps int32, offsets int32 (n_radii + 1,)): radius r's taps are
+    ``taps[offsets[r]:offsets[r + 1]]``, each packed as
+    ``i | j << 8 | c << 16 | w << 24`` (kernel row i, column j, channel c,
+    signed weight w), in (c, i, j) order.
+    """
+    n_r, c_in, k, _ = q.shape
+    if c_in > 255 or k > 256:
+        raise ValueError(f"kernel {q.shape} too large for 8-bit tap fields")
+    packed, offsets = [], [0]
+    for r in range(n_r):
+        c, i, j = np.nonzero(q[r])
+        w = q[r, c, i, j].astype(np.int64)
+        packed.append(i | j << 8 | c << 16 | (w & 0xFF) << 24)
+        offsets.append(offsets[-1] + len(c))
+    taps = np.concatenate(packed).astype(np.int64).astype(np.uint32)
+    return taps.view(np.int32), np.asarray(offsets, np.int32)
+
+
+class RingWeights(NamedTuple):
+    """One int8 ring kernel on one device, in both layouts: ``dense``
+    (n_radii, C, K, K) int8 for the plain twin, ``taps``/``offsets`` (see
+    :func:`compact_taps`) for the CUDA kernel."""
+
+    dense: torch.Tensor
+    taps: torch.Tensor
+    offsets: torch.Tensor
+    max_taps: int
+
+
+def ring_weights(q: np.ndarray, device) -> RingWeights:
+    taps, offsets = compact_taps(q)
+    return RingWeights(
+        dense=torch.as_tensor(q, device=device),
+        taps=torch.as_tensor(taps, device=device),
+        offsets=torch.as_tensor(offsets, device=device),
+        max_taps=int(np.diff(offsets).max()),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_tables(min_radius: int, max_radius: int, device: str):
+    q, scale = _ring_conv_kernel_q8(min_radius, max_radius)
+    # Dequant multiplier in numpy f32, as the reference computes it.
+    dq = (scale / (127.0 * 127.0)).astype(np.float32)
+    return ring_weights(q, device), torch.as_tensor(dq, device=device)
+
+
+# The CPU convolution unfolds C*K*K doubles per output pixel (46 GB for a
+# 1024^2 frame's padded plane at radii 8-12): bands of rows bound it.
+_CPU_UNFOLD_BYTES = 1 << 28
+
+
+def ring_corr_plain(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
+    """float64 correlation of int8 values: every product and partial sum is
+    an integer below 2^53, so any algorithm gives the exact int32 result."""
+    n_r, c_in, k, _ = weights.dense.shape
+    rad = k // 2
+    _, h, w = feats.shape
+    wt = weights.dense.to(torch.float64)
+    fp = F.pad(feats.to(torch.float64), (rad, rad, rad, rad))
+    rows = h
+    if feats.device.type == "cpu":
+        rows = max(1, _CPU_UNFOLD_BYTES // (c_in * k * k * max(w, 1) * 8))
+    out = torch.empty((n_r, h, w), dtype=torch.int32, device=feats.device)
+    for y0 in range(0, h, rows):
+        y1 = min(h, y0 + rows)
+        band = F.conv2d(fp[None, :, y0:y1 + 2 * rad], wt)[0]
+        out[:, y0:y1] = torch.round(band).to(torch.int32)
+    return out
+
+
+def ring_corr(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
+    """Exact int8 ring correlation: (C, H, W) int8 features -> (n_radii, H,
+    W) int32, zero padded (SAME). CPU tensors take the plain twin; CUDA
+    tensors take the kernel."""
+    global launches
+    if feats.device.type == "cpu" and weights.dense.device.type == "cpu":
+        return ring_corr_plain(feats, weights)
+    for name, t in (("taps", weights.taps), ("offsets", weights.offsets)):
+        if t.device != feats.device or t.dtype != torch.int32:
+            raise ValueError(f"ring_corr: {name} must be int32 on "
+                             f"{feats.device}, got {t.dtype} on {t.device}")
+    if feats.device.type != "cuda":
+        raise ValueError(f"ring_corr: unsupported device {feats.device}")
+    if feats.dtype != torch.int8 or feats.ndim != 3:
+        raise TypeError(f"ring_corr: (C, H, W) int8 features required, got "
+                        f"{feats.dtype} {tuple(feats.shape)}")
+    n_r, c_in, k, k2 = weights.dense.shape
+    if k != k2 or k % 2 == 0 or feats.shape[0] != c_in:
+        raise ValueError(f"ring_corr: kernel {tuple(weights.dense.shape)} "
+                         f"does not fit features {tuple(feats.shape)}")
+    rad = k // 2
+    plane = (32 + 2 * rad) ** 2
+    smem = 4 * ((c_in * plane + 3) // 4) + 4 * weights.max_taps
+    if c_in * plane >= 1 << 23 or smem > 227 * 1024:
+        raise ValueError(f"ring_corr: kernel half-width {rad} with {c_in} "
+                         "channels exceeds the kernel's shared memory")
+    feats = feats.contiguous()
+    _, h, w = feats.shape
+    out = torch.empty((n_r, h, w), dtype=torch.int32, device=feats.device)
+    if h == 0 or w == 0:
+        return out
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    err = _build.load().mg_ring_corr(
+        feats.data_ptr(), c_in, h, w, weights.taps.data_ptr(),
+        weights.offsets.data_ptr(), n_r, weights.max_taps, rad,
+        out.data_ptr(), stream)
+    launches += 1
+    _build.check(err, "mg_ring_corr")
+    return out
+
+
+def _cs2_from_grads(dx, dy):
+    """(cos(2a), sin(2a)) for a = arctan2(dy, dx) from the double-angle
+    identities; zero-gradient pixels get the a = 0 values (1, 0)."""
+    g2 = dx * dx + dy * dy
+    pos = g2 > 0
+    safe = torch.where(pos, g2, 1.0)
+    c1 = torch.where(pos, (dx * dx - dy * dy) / safe, 1.0)
+    s1 = torch.where(pos, (2.0 * dx * dy) / safe, 0.0)
+    return c1, s1
+
+
+def alignment_features_q8(edges, dx, dy) -> torch.Tensor:
+    """int8 per-harmonic (edge*cos(2ka), edge*sin(2ka)) channels,
+    ``round(127 * feature)``: the ``qdtype="int8"`` form of
+    ``magnify_tpu.ops.score._alignment_features`` with ``grads=(dx, dy)``.
+
+    The cos/sin(2ka) recurrence ``c' = c*c1 - s*s1``, ``s' = s*c1 + c*s1``
+    rounds as the reference's compiled program does: the first product of
+    each line fused with the sum (one FMA), the second rounded on its own.
+    Plain two-rounding arithmetic moves a few int8 features in 10^5 by one
+    step across a .5 boundary, which moves scores in the 5th digit.
+    """
+    e = edges.to(torch.float32)
+    c1, s1 = _cs2_from_grads(dx, dy)
+    feats = []
+    ck, sk = c1, s1
+    for k in range(1, max(_HARMONICS) + 1):
+        if k in _HARMONICS:
+            feats.append(e * ck)
+            feats.append(e * sk)
+        ck, sk = fma_f32(ck, c1, -(sk * s1)), fma_f32(sk, c1, ck * s1)
+    return torch.round(torch.stack(feats) * 127.0).to(torch.int8)
+
+
+def score_maps(edges, dx, dy, *, min_radius: int, max_radius: int):
+    """Roundness score for every (center, radius): (n_radii, Hp, Wp) f32.
+
+    ``edges``/``dx``/``dy`` are the padded (Hp, Wp) planes (the caller pads
+    by 2*max_radius); map [r, y, x] scores radius ``min_radius + r`` at
+    padded position (y, x). int8 features, exact int32 correlation, then one
+    f32 multiply by ``scale / 127^2``.
+    """
+    weights, dq = _cached_tables(int(min_radius), int(max_radius),
+                                 str(edges.device))
+    acc = ring_corr(alignment_features_q8(edges, dx, dy), weights)
+    return acc.to(torch.float32) * dq[:, None, None]

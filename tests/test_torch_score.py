@@ -1,0 +1,110 @@
+"""The port's int8 score maps against the JAX package's, bit for bit.
+
+Features go through ``magnify_tpu.ops.score._alignment_features(...,
+qdtype="int8")`` and ``alignment_features_q8``; maps through
+``score_maps(..., s2d=1, qdtype="int8")`` and the port's ``score_maps``,
+whose correlation on the CPU is the float64 plain twin of the CUDA kernel.
+``qdtype`` is passed explicitly, so no environment variable is involved.
+The JAX functions run under ``jax.jit``, as the detector runs them: XLA
+then fuses the harmonic recurrence into FMAs, which the port reproduces.
+Tolerance: exact (int8 features, exact int32 accumulation, one f32
+multiply).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magnify_tpu.ops import edge as jedge
+from magnify_tpu.ops import score as jscore
+from magnify_tpu_torch.ops import detect as tdetect
+from magnify_tpu_torch.ops import score as tscore
+from tests.synth import draw_beads
+
+MIN_R, MAX_R = 5, 8
+
+
+@jax.jit
+def _jax_features(edges, dx, dy):
+    return jscore._alignment_features(None, edges, grads=(dx, dy),
+                                      qdtype="int8")
+
+
+@jax.jit
+def _jax_maps(edges, dx, dy):
+    return jscore.score_maps(None, edges, min_radius=MIN_R,
+                             max_radius=MAX_R, s2d=1, grads=(dx, dy),
+                             qdtype="int8")
+
+
+@pytest.fixture(scope="module")
+def planes():
+    """Padded (edges, dx, dy) of a ~128^2 bead fixture, as numpy."""
+    rng = np.random.default_rng(11)
+    shape = (128 - 4 * MAX_R, 128 - 4 * MAX_R)
+    pos = [[20, 20], [24, 70], [70, 30], [66, 74]]
+    img = draw_beads(shape, pos, diameters=[10, 12, 14, 16])
+    img = img + rng.normal(100, 5, shape).astype(np.uint16)
+    u8 = tdetect.normalize_planes_u8(img[None])[0]
+    edges, dx, dy, _ = jedge.edge_pipeline(jnp.asarray(u8), 0.1, 0.9,
+                                           normalized=True)
+    pad = 2 * MAX_R
+    return tuple(np.pad(np.asarray(a), pad) for a in (edges, dx, dy))
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def test_int8_features_match(planes):
+    edges, dx, dy = planes
+    want = np.asarray(_jax_features(edges, dx, dy))
+    got = tscore.alignment_features_q8(_t(edges), _t(dx), _t(dy))
+    assert got.dtype == torch.int8 and got.shape == (8,) + edges.shape
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_random_gradient_features_match():
+    """Integer Scharr-range gradients on a 512^2 plane: enough pixels that
+    two-rounding arithmetic would flip int8 features (it flips ~85 of
+    ~29M on the 1844^2 smoke frame B)."""
+    rng = np.random.default_rng(1)
+    dx = rng.integers(-4080, 4081, (512, 512)).astype(np.float32)
+    dy = rng.integers(-4080, 4081, (512, 512)).astype(np.float32)
+    dx[::7, ::5] = 0.0
+    dy[::7, ::5] = 0.0  # zero gradients take the (1, 0) branch
+    edges = np.ones((512, 512), bool)
+    want = np.asarray(_jax_features(edges, dx, dy))
+    got = tscore.alignment_features_q8(_t(edges), _t(dx), _t(dy))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_int8_score_maps_match(planes):
+    edges, dx, dy = planes
+    want = np.asarray(_jax_maps(edges, dx, dy))
+    got = tscore.score_maps(_t(edges), _t(dx), _t(dy), min_radius=MIN_R,
+                            max_radius=MAX_R)
+    assert got.dtype == torch.float32
+    assert got.shape == (MAX_R - MIN_R + 1,) + edges.shape
+    np.testing.assert_array_equal(want, got.numpy())
+    assert (want >= 0.3).any()  # the fixture's beads score
+
+
+def test_ring_corr_plain_is_the_exact_int32_correlation():
+    """The plain twin against a direct int64 sum over the taps."""
+    rng = np.random.default_rng(9)
+    feats = rng.integers(-127, 128, (8, 40, 52)).astype(np.int8)
+    q, _ = tscore._ring_conv_kernel_q8(3, 6)
+    weights = tscore.ring_weights(q, "cpu")
+    got = tscore.ring_corr(_t(feats), weights).numpy()
+    k = q.shape[-1]
+    rad = k // 2
+    fp = np.pad(feats.astype(np.int64), ((0, 0), (rad, rad), (rad, rad)))
+    want = np.zeros((q.shape[0],) + feats.shape[1:], np.int64)
+    for r, c, i, j in zip(*np.nonzero(q)):
+        want[r] += int(q[r, c, i, j]) * fp[c, i:i + feats.shape[1],
+                                           j:j + feats.shape[2]]
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(want, got)

@@ -1,0 +1,132 @@
+"""The port's ``beads`` end to end against the JAX package's, exactly.
+
+``magnify_tpu_torch.beads(..., device="cpu")`` runs against
+``magnify_tpu.beads(..., detector="dense")`` with int8 score maps on three
+fixtures: a 256^2 single-channel frame (with an array flat field), a
+2-channel frame with shared and disjoint beads (the cross-channel dedupe),
+and a 2 x 2-tile stack with overlap (stitch, with a darkfield). Every output
+variable (``roi``, ``fg``, ``bg``, ``x``, ``y``, ``valid``, channel coords)
+must have the same dims and identical values.
+
+The reference runs in ONE subprocess per session (this file run as a
+script): the JAX package reads its score-quantization mode once at import,
+its CPU defaults are the bf16 scorer and the ransac detector, and its jitted
+stages cache traces per process, so an in-process run could meet a trace
+or mode left by another test file.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+KW = dict(min_bead_diameter=16, max_bead_diameter=24, min_roundness=0.3)
+
+
+def _paint(img, positions, radii, value):
+    from magnify_tpu_torch.utils import filled_circle_points
+
+    for (y, x), r in zip(positions, radii):
+        pts = filled_circle_points(r) + np.array([y, x])
+        ok = ((pts[:, 0] >= 0) & (pts[:, 0] < img.shape[-2])
+              & (pts[:, 1] >= 0) & (pts[:, 1] < img.shape[-1]))
+        img[..., pts[ok, 0], pts[ok, 1]] = value
+
+
+def case_inputs(case):
+    """(array, dims, coords, kwargs) of one fixture, from numpy seeds."""
+    rng = np.random.default_rng({"single": 0, "two_channel": 1,
+                                 "tiled": 2}[case])
+    if case == "single":
+        img = rng.normal(100, 5, (256, 256)).astype(np.uint16)
+        pos = [(40, 40), (40, 130), (45, 215), (128, 90), (132, 180),
+               (210, 50), (215, 140), (250, 230), (5, 250)]
+        _paint(img, pos, [8, 9, 10, 11, 10, 9, 8, 10, 9], 1000)
+        yy, xx = np.mgrid[0:256, 0:256]
+        flat = (1.0 + 0.3 * np.exp(-((yy - 128) ** 2 + (xx - 128) ** 2)
+                                    / 2e4)).astype(np.float32)
+        return img, ("y", "x"), None, dict(KW, overlap=0, flatfield=flat)
+    if case == "two_channel":
+        img = rng.normal(100, 5, (2, 256, 256)).astype(np.uint16)
+        shared = [(50, 50), (60, 180), (190, 70)]
+        _paint(img[0], shared + [(180, 200)], [10, 9, 11, 10], 1000)
+        _paint(img[1], [(y + 3, x + 4) for y, x in shared[:2]]
+               + [(120, 120), (220, 220)], [10, 9, 10, 8], 900)
+        return (img, ("channel", "y", "x"),
+                {"channel": ["red", "green"]},
+                dict(KW, overlap=0, search_channel=["red", "green"]))
+    tile, ov = 160, 32
+    step = tile - ov
+    img = rng.normal(100, 5, (2, 2, tile, tile)).astype(np.uint16)
+    field = [(40, 40), (60, 150), (120, 125), (150, 60), (200, 200),
+             (230, 90), (100, 240)]
+    for tr in range(2):
+        for tc in range(2):
+            _paint(img[tr, tc], [(y - tr * step + ov // 2,
+                                  x - tc * step + ov // 2) for y, x in field],
+                   [9, 10, 11, 10, 9, 8, 10], 1000)
+    return (img, ("row", "col", "y", "x"), None,
+            dict(KW, overlap=ov, darkfield=10.0))
+
+
+CASES = ("single", "two_channel", "tiled")
+
+
+def run_case(pkg, case, **extra):
+    img, dims, coords, kw = case_inputs(case)
+    data = pkg.DataArray(img, dims=dims, coords=coords)
+    return pkg.beads(data, **kw, **extra)
+
+
+def flatten(xp, case):
+    """Every variable of a result as {f"{case}/{name}": values} plus its
+    dims under f"{case}/{name}/dims"."""
+    out = {}
+    for name in sorted(xp.variables):
+        out[f"{case}/{name}"] = np.asarray(xp[name].values)
+        out[f"{case}/{name}/dims"] = np.array(",".join(xp[name].dims))
+    return out
+
+
+@pytest.fixture(scope="session")
+def reference(tmp_path_factory):
+    import subprocess
+
+    path = tmp_path_factory.mktemp("torch_slice_ref") / "ref.npz"
+    env = dict(os.environ, MAGNIFY_TPU_SCORE_QUANT="int8",
+               MAGNIFY_TPU_DETECTOR="dense", JAX_PLATFORMS="cpu",
+               MAGNIFY_TPU_CACHE_DIR=os.path.join(ROOT, ".cache", "test_xla"))
+    subprocess.run([sys.executable, os.path.abspath(__file__), str(path)],
+                   env=env, cwd=ROOT, check=True, timeout=600)
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_beads_matches_jax_dense(reference, case):
+    import magnify_tpu_torch as mt
+
+    got = flatten(run_case(mt, case, device="cpu"), case)
+    want = {k: v for k, v in reference.items()
+            if k.startswith(case + "/")}
+    assert sorted(got) == sorted(want)
+    assert got[f"{case}/roi/dims"] == want[f"{case}/roi/dims"]
+    n_marks = got[f"{case}/x"].shape[0]
+    assert n_marks >= 4
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+if __name__ == "__main__":
+    # The reference run: the JAX package, dense detector, int8 maps.
+    assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
+    assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
+    sys.path.insert(0, ROOT)
+    import magnify_tpu as mg
+
+    result = {}
+    for name in CASES:
+        result.update(flatten(run_case(mg, name, detector="dense"), name))
+    np.savez(sys.argv[1], **result)
