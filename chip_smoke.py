@@ -9,11 +9,17 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
 
 1. prints the card's name and power limit (``nvidia-smi``) and the build
    time;
-2. kernel phase: holds each kernel against its plain torch twin on the card
-   (hysteresis on frame A's Canny masks, on random masks at 2048^2 and
-   4096^2 and on a serpentine chain across many small tiles; the int8 ring
-   correlation on frame A's features, radii 8-12), bit for bit, and times
-   both;
+2. kernel phase: holds each kernel against its plain torch twin on the card,
+   bit for bit: hysteresis on the Canny masks of frame A (1024^2) and of
+   frame B's stitched plane (1844^2), on random masks at 2048^2 and 4096^2,
+   with strong pixels outside the weak mask, and on a serpentine chain
+   across many small tiles; the int8 ring correlation on the padded
+   features of frames A and B (8 x 1072^2, 8 x 1892^2; radii 8-12). It
+   times each kernel (CUDA events), its plain twin and, for the ring
+   correlation, the cuDNN ``conv2d`` that computes the same function
+   (``library_ms``, a yardstick the port never calls), and computes each
+   kernel's bound from the bytes it must move and the operations it must
+   do;
 3. main path: ``magnify_tpu_torch.beads`` on frame A (1024^2, 110 beads)
    and frame B (2 channels, 2 x 2 tiles of 1024^2, overlap 102, stitched
    to 1844^2) on ``cuda``; the marks must equal the golden file
@@ -21,8 +27,11 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    ``scripts/make_torch_port_golden.py``), frame A must find 110/110, and
    both kernels must have been launched by this run; then times warm
    frames of A;
-4. prints one JSON line of kernel records and, last, one JSON line
-   ``{"ok": true, "device": {...}}``.
+4. prints one JSON line of kernel records (per kernel: ``launches`` in the
+   main path and ``launches_per_call``, ``ms``/``plain_ms``/``bound_ms``/
+   ``bound_share``/``library_ms`` at frame A's shapes and the same keys
+   with ``_frame_b`` at frame B's, ``bound_by``, ``max_abs_err``) and,
+   last, one JSON line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 at once. ``--kernels-only`` stops after
@@ -159,15 +168,47 @@ def _time_ms(fn, reps: int) -> float:
     return statistics.median(out)
 
 
-def _frame_a_stages(dev):
-    """Frame A's Canny masks and padded score inputs, on ``dev``, through
-    the port's own stages (the shapes and values the main path sees)."""
+def _event_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` in ms: CUDA events around ``reps``
+    back-to-back calls after one warm-up call. The inputs stay in the 50 MB
+    L2 between calls, as the main path's inputs come fresh from the stage
+    before."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+
+
+def _bound(n_bytes: int, n_ops: int):
+    """Least time (ms) for moving ``n_bytes`` once and doing ``n_ops`` int8
+    operations, and which of the two sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _stages(img, dev):
+    """Canny masks and padded int8 features of one uint16 plane, on
+    ``dev``, through the port's own stages (the shapes and values the main
+    path sees)."""
     import torch
     import torch.nn.functional as F
 
     from magnify_tpu_torch.ops import detect, edge, score
 
-    img, _ = frame_a()
     u8 = torch.as_tensor(detect.normalize_planes_u8(img[None])[0]).to(dev)
     blurred = edge.gaussian_blur5_u8(u8)
     dx, dy = edge.scharr(blurred)
@@ -181,6 +222,15 @@ def _frame_a_stages(dev):
     feats = score.alignment_features_q8(F.pad(edges, p), F.pad(dx, p),
                                         F.pad(dy, p))
     return strong, weak, feats
+
+
+def _frame_b_plane() -> np.ndarray:
+    """Frame B's "red" channel stitched as ``stitch`` does it (1844^2)."""
+    clip, rem = OVERLAP_B // 2, OVERLAP_B % 2
+    tiles = frame_b()[0][:, :, clip:TILE - clip - rem, clip:TILE - clip - rem]
+    n, m, th, tw = tiles.shape
+    return np.ascontiguousarray(tiles.transpose(0, 2, 1, 3)).reshape(
+        n * th, m * tw)
 
 
 def _serpentine(h: int, w: int):
@@ -197,18 +247,15 @@ def _serpentine(h: int, w: int):
     return strong, chain
 
 
-def kernel_phase(dev) -> list:
+def _hysteresis_record(dev, planes) -> dict:
     import torch
 
     from magnify_tpu_torch.ops import hysteresis as hyst
-    from magnify_tpu_torch.ops import score
 
-    records = []
-    strong_a, weak_a, feats_a = _frame_a_stages(dev)
-
-    # Hysteresis: the kernel against the plain twin, bit for bit.
+    (strong_a, weak_a), (strong_b, weak_b) = planes
     rng = np.random.default_rng(7)
-    cases = [("frame A masks", strong_a, weak_a, None)]
+    cases = [("frame A masks", strong_a, weak_a, None),
+             ("frame B masks", strong_b, weak_b, None)]
     for n in (2048, 4096):
         s = rng.random((n, n)) > 0.99
         w = s | (rng.random((n, n)) > 0.65)
@@ -220,12 +267,21 @@ def kernel_phase(dev) -> list:
         cases.append((f"random 100x150 tile_rows={tr}",
                       torch.as_tensor(s).to(dev), torch.as_tensor(w).to(dev),
                       tr))
+    for shape in ((1, 1), (3, 5), (1000, 777), (1844, 1844)):
+        s = rng.random(shape) < 0.02
+        w = rng.random(shape) < 0.4
+        s.flat[0], w.flat[0] = True, False
+        cases.append((f"strong outside weak {shape[0]}x{shape[1]}",
+                      torch.as_tensor(s).to(dev), torch.as_tensor(w).to(dev),
+                      None))
     s, w = _serpentine(256, 512)
     cases.append(("serpentine 256x512 tile_rows=8", torch.as_tensor(s).to(dev),
                   torch.as_tensor(w).to(dev), 8))
+    per_call = set()
     for name, s, w, tr in cases:
+        before = hyst.launches
         got = hyst.hysteresis(s, w, tile_rows=tr)
-        sweeps = hyst.last_sweeps
+        per_call.add(hyst.launches - before)
         want = hyst.hysteresis_plain(s, w)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -234,49 +290,100 @@ def kernel_phase(dev) -> list:
         if name.startswith("serpentine") and int(got.sum()) != int(w.sum()):
             raise AssertionError("serpentine chain did not light up fully")
         _say(f"hysteresis == plain on {name} ({tuple(s.shape)}): "
-             f"{int(got.sum())} edge pixels, {sweeps} sweeps")
-    hyst.hysteresis(strong_a, weak_a)
-    sweeps_a = hyst.last_sweeps
-    k_ms = _time_ms(lambda: hyst.hysteresis(strong_a, weak_a), 20)
-    p_ms = _time_ms(lambda: hyst.hysteresis_plain(strong_a, weak_a), 5)
-    _say(f"hysteresis time on frame A masks: kernel {k_ms:.4f} ms "
-         f"({sweeps_a} sweeps), plain {p_ms:.4f} ms")
-    for n in (2048, 4096):
-        s, w = cases[1 if n == 2048 else 2][1:3]
-        kn = _time_ms(lambda: hyst.hysteresis(s, w), 10)
-        pn = _time_ms(lambda: hyst.hysteresis_plain(s, w), 3)
-        _say(f"hysteresis time on random {n}^2: kernel {kn:.4f} ms "
-             f"({hyst.last_sweeps} sweeps), plain {pn:.4f} ms")
-    records.append({
-        "name": "hysteresis", "route": "cuda",
-        "source": "magnify_tpu_torch/csrc/hysteresis.cu",
-        "replaces": "magnify_tpu/ops/pallas_kernels.py:131",
-        "max_abs_err": 0, "ms": k_ms, "plain_ms": p_ms,
-        "sweeps_frame_a": sweeps_a,
-    })
+             f"{int(got.sum())} edge pixels")
+    if per_call != {hyst.LAUNCHES_PER_CALL}:
+        raise AssertionError(f"hysteresis launches per call {per_call}")
+    _say(f"hysteresis launches per call: {hyst.LAUNCHES_PER_CALL} on every "
+         "case")
 
-    # Ring correlation on frame A's features, radii 8-12.
-    weights, _dq = score._cached_tables(8, 12, str(feats_a.device))
-    got = score.ring_corr(feats_a, weights)
-    want = score.ring_corr_plain(feats_a, weights)
-    torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if err != 0 or got.shape != want.shape:
-        raise AssertionError(f"ring_corr kernel != plain twin: max |diff| "
-                             f"{err}")
-    _say(f"ring_corr == plain on frame A features {tuple(feats_a.shape)} -> "
-         f"{tuple(got.shape)} int32, {int(weights.taps.numel())} taps")
-    k_ms = _time_ms(lambda: score.ring_corr(feats_a, weights), 20)
-    p_ms = _time_ms(lambda: score.ring_corr_plain(feats_a, weights), 5)
-    _say(f"ring_corr time on frame A: kernel {k_ms:.4f} ms, "
-         f"plain (float64 conv2d) {p_ms:.4f} ms")
-    records.append({
-        "name": "ring_corr", "route": "cuda",
-        "source": "magnify_tpu_torch/csrc/ring_corr.cu",
-        "replaces": "magnify_tpu/ops/score.py:536",
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-    })
-    return records
+    rec = {"name": "hysteresis", "route": "cuda",
+           "source": "magnify_tpu_torch/csrc/hysteresis.cu",
+           "replaces": "magnify_tpu/ops/pallas_kernels.py:131",
+           "launches_per_call": hyst.LAUNCHES_PER_CALL, "max_abs_err": 0}
+    for tag, s, w in (("", strong_a, weak_a), ("_frame_b", strong_b, weak_b)):
+        k_ms = _event_ms(lambda: hyst.hysteresis(s, w), 100)
+        p_ms = _event_ms(lambda: hyst.hysteresis_plain(s, w), 3)
+        # Strong and weak masks read once, the result written once: 3 B/px.
+        bound_ms, bound_by = _bound(3 * s.numel(), 0)
+        rec.update({f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
+                    f"bound_ms{tag}": bound_ms, "bound_by": bound_by,
+                    f"bound_share{tag}": bound_ms / k_ms})
+        _say(f"hysteresis time at {tuple(s.shape)}: kernel {k_ms:.4f} ms, "
+             f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    for name, s, w, _ in cases[2:4]:
+        kn = _event_ms(lambda: hyst.hysteresis(s, w), 20)
+        _say(f"hysteresis time on {name}: kernel {kn:.4f} ms")
+    rec["library_ms"] = None  # no single PyTorch call computes it
+    return rec
+
+
+def _ring_corr_record(dev, feats_ab) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from magnify_tpu_torch.ops import score
+
+    weights, _dq = score._cached_tables(8, 12, str(dev))
+    n_r, _c, k, _ = weights.dense.shape
+    rad = k // 2
+    nnz = int((weights.dense != 0).sum())
+    before = score.launches
+    err = 0
+    for name, feats in zip(("frame A", "frame B"), feats_ab):
+        got = score.ring_corr(feats, weights)
+        want = score.ring_corr_plain(feats, weights)
+        torch.cuda.synchronize()
+        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if e != 0 or got.shape != want.shape:
+            raise AssertionError(f"ring_corr kernel != plain twin on {name}: "
+                                 f"max |diff| {e}")
+        err = max(err, e)
+        _say(f"ring_corr == plain on {name} features {tuple(feats.shape)} "
+             f"-> {tuple(got.shape)} int32, {int(weights.table.shape[0])} "
+             f"positions, {nnz} taps")
+    per_call = (score.launches - before) // 2
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    bench = torch.backends.cudnn.benchmark
+    dense_f = weights.dense.float()
+    rec = {"name": "ring_corr", "route": "cuda",
+           "source": "magnify_tpu_torch/csrc/ring_corr.cu",
+           "replaces": "magnify_tpu/ops/score.py:637",
+           "launches_per_call": per_call, "max_abs_err": err,
+           "library_call": "F.conv2d(feats.float()[None], "
+                           "weights.dense.float(), padding=R)",
+           "library_cudnn_allow_tf32": tf32,
+           "library_cudnn_benchmark": bench}
+    for tag, feats in zip(("", "_frame_b"), feats_ab):
+        _, h, w = feats.shape
+        k_ms = _event_ms(lambda: score.ring_corr(feats, weights), 50)
+        p_ms = _event_ms(lambda: score.ring_corr_plain(feats, weights), 3)
+        ff = feats.float()[None]
+        lib = F.conv2d(ff, dense_f, padding=rad)[0]
+        lib_err = float((lib.double() - score.ring_corr(feats, weights)
+                         .double()).abs().max())
+        lib_ms = _event_ms(lambda: F.conv2d(ff, dense_f, padding=rad), 20)
+        # int8 features read once, int32 maps written once; one multiply
+        # and one add per nonzero weight and pixel.
+        bound_ms, bound_by = _bound((8 + 4 * n_r) * h * w, 2 * nnz * h * w)
+        rec.update({f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
+                    f"library_ms{tag}": lib_ms,
+                    f"library_max_abs_err{tag}": lib_err,
+                    f"bound_ms{tag}": bound_ms, "bound_by": bound_by,
+                    f"bound_share{tag}": bound_ms / k_ms})
+        _say(f"ring_corr time at {tuple(feats.shape)}: kernel {k_ms:.4f} ms, "
+             f"plain (float64 conv2d) {p_ms:.4f} ms, library conv2d "
+             f"{lib_ms:.4f} ms (max |diff| {lib_err}, cudnn allow_tf32="
+             f"{tf32}, benchmark={bench}), bound {bound_ms:.5f} ms "
+             f"({bound_by})")
+    return rec
+
+
+def kernel_phase(dev) -> list:
+    strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
+    strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
+    return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b))),
+            _ring_corr_record(dev, (feats_a, feats_b))]
 
 
 def _check_case(case: str, xp, golden) -> None:
@@ -319,6 +426,8 @@ def main_path(records: list, dev) -> None:
             raise AssertionError(f"the main path never launched {name}")
     for rec in records:
         rec["launches"] = counts[rec["name"]]
+        _say(f"{rec['name']}: {rec['launches_per_call']} launches per call, "
+             f"{rec['launches']} in the main path")
 
     n_true = frame_a()[1]
     n_a = xa["roi"].sizes["mark"]

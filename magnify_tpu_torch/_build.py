@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so a
-build takes seconds rather than minutes). The library is built on first
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them at once, and the objects are linked into ONE shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so a build
+takes seconds rather than minutes). The library is built on first
 use into ``.cache/magnify_tpu_torch/kernels/<hash>/`` beside the package,
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads straight from the cache.
@@ -27,7 +28,7 @@ __all__ = ["build", "load", "last_build"]
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 CACHE = CSRC.parent.parent / ".cache" / "magnify_tpu_torch" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # What the last build did: {"seconds", "cached", "path", "log"}.
 last_build: dict = {}
@@ -36,8 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
-    "mg_hysteresis_sweep": ([_P, _P, _I, _I, _I, _P, _P], _I),
-    "mg_ring_corr": ([_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P], _I),
+    "mg_hysteresis": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+    "mg_ring_corr": ([_P, _I, _I, _P, _P, _I, _I, _I, _P, _P], _I),
+    "mg_ring_corr_smem": ([_I, _I], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -71,15 +73,27 @@ def build() -> pathlib.Path:
                           path=str(lib), log="")
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libmagnify_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                               str(obj)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    tmp = out_dir / f"libmagnify_kernels.{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}{link.stderr}")
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     last_build.update(seconds=time.perf_counter() - t0, cached=False,
-                      path=str(lib), log=proc.stdout + proc.stderr)
+                      path=str(lib), log=log + link.stdout + link.stderr)
     return lib
 
 

@@ -1,114 +1,295 @@
-// Canny hysteresis on the H100: grow strong edge pixels through weak ones
-// (8-connected, zero border) to the least fixpoint.
+// Canny hysteresis on the H100 as connected-component labelling.
 //
 // Replaces: magnify_tpu/ops/pallas_kernels.py:_hysteresis_call (whole-plane
 // VMEM kernel, _hysteresis_kernel) and :_hysteresis_tiled_call (serpentine
-// tiled kernel, _tiled_hysteresis_kernel). One design serves every plane
-// size: the plane stays in device memory and tiles grow in shared memory.
+// tiled kernel, _tiled_hysteresis_kernel). Both compute the least fixpoint
+// of cur = cur | (weak & dilate8(cur)) from cur = strong, 8-connected, with
+// a zero border. One design serves every plane size.
 //
-// What bounds it: bytes and sweeps, not arithmetic. A sweep reads the uint8
-// `cur` and `weak` planes once (2 bytes a pixel) and writes back only tiles
-// that grew; a 1024^2 plane is ~2 MB, which the 50 MB L2 holds across
-// sweeps. The fixpoint loop inside a tile runs on shared memory only. The
-// number of sweeps is set by how often an edge chain crosses a tile border
-// after the neighbouring tile has already run in that sweep; bead edges are
-// short closed loops, so frames converge in a few sweeps.
+// The same set without a fixpoint. With F = weak | strong,
 //
-// Design: one CTA per tile of `tile_rows` x kTileW pixels. The CTA loads
-// its tile plus a 1-pixel halo of `cur` and `weak` into shared memory,
-// grows the interior to a local fixpoint (halo pixels act as fixed seeds;
-// `__syncthreads_or` carries the changed flag), writes the interior back
-// and, if any interior pixel grew, sets the global `changed` word. The host
-// relaunches sweeps until a sweep leaves `changed` at 0.
+//   out = F & (the 8-connected component of F holds a strong pixel).
 //
-// Updating `cur` in place in global memory while other CTAs read it as
-// their halo is safe because growth is monotone: a CTA that reads a halo
-// pixel before its owner sets it sees a smaller set, which can only delay
-// growth, never add a pixel outside the fixpoint (every pixel set is weak
-// and touches a set pixel). A sweep that changes nothing ran on a constant
-// plane, so every tile is closed under growth and the plane is the least
-// fixpoint. This is the argument of the Pallas tiled kernel's docstring
-// (pallas_kernels.py:157-166), with stale halos in place of stale blocks.
+// Fixpoint within it: every pixel the fixpoint holds is strong, or weak and
+// next to a pixel it held one step earlier; by induction on the step it is
+// in F and joined inside F to a strong pixel. It within the fixpoint: take p
+// in F and a path s = p0, p1, ..., pk = p inside F from a strong s. Strong
+// pixels are held from the start, and a pixel of the path that is not
+// strong is weak and next to a held one, so it is held one step later; by
+// induction along the path p is held. Strong pixels outside `weak` are
+// seeds only: they are in F and seed their component, as they are held but
+// never grown into by the fixpoint.
+//
+// What bounds it: bytes and launch latency, not arithmetic. The masks are
+// read once (2 bytes a pixel) and the result written once (1 byte); the
+// int32 label plane (4 bytes a pixel, 4 MB at 1024^2) is written once and
+// read back by the later passes, mostly from the 50 MB L2. The fixpoint
+// design it replaces relaunched sweeps until one changed nothing, a host
+// round trip per sweep; this one is four launches per plane, fixed by the
+// shape, with no host sync between them.
+//
+// Design: block-based union-find labelling (Playne & Hawick, "A New
+// Algorithm for Parallel Connected-Component Labelling on GPUs", IEEE TPDS
+// 2018; Allegretti, Bolelli & Grana, "Optimized Block-Based Algorithms to
+// Label Connected Components on GPUs", IEEE TPDS 2020). A label is a parent
+// pointer: the index of a pixel of the same component, the pixel's own
+// index at a root, -1 outside F. Parents always point to smaller indices, so
+// a union (atomicMin on the larger root) keeps the forest acyclic and every
+// loop lock-free.
+//  1. local:  one CTA per tile of tile_rows x kTileW pixels labels F inside
+//             its tile in shared memory (tile-local indices), then writes
+//             each pixel's tile root as a plane index. Tile-local order is
+//             plane order restricted to the tile, so parents still point to
+//             smaller plane indices.
+//  2. merge:  the pixels on each tile's top row and side columns unite, in
+//             the label plane, with their neighbours in other tiles.
+//  3. mark:   each strong pixel finds its root and sets the root label's
+//             bit 31 (labels are < 2^31 - 1, so a marked root is negative
+//             but never -1).
+//  4. output: out = (label != -1) & (bit 31 of the root's label).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileW = 128;   // tile width: 4 warps of 32 contiguous bytes
+constexpr int kTileW = 128;  // tile width: 4 warps of 32 contiguous pixels
 constexpr int kThreads = 256;
+constexpr int kLoadAhead = 8;  // mask loads a thread keeps in flight
+constexpr int kMarked = static_cast<int>(0x80000000u);
+
+// Root of x in a forest whose roots may carry the mark bit.
+template <typename Ptr>
+__device__ __forceinline__ int find_root(Ptr labels, int x) {
+  int p = labels[x] & ~kMarked;
+  while (p != x) {
+    x = p;
+    p = labels[x] & ~kMarked;
+  }
+  return x;
+}
+
+// Root of x, halving the path on the way: each visited pixel is pointed at
+// its grandparent. A plain store of an ancestor keeps the forest valid even
+// where it overwrites a concurrent atomicMin link: the thread that made
+// that link goes on to unite with the parent it replaced (see unite).
+template <typename Ptr, typename Load>
+__device__ __forceinline__ int find_halving(Ptr labels, int x, Load load) {
+  int p = load(labels + x);
+  while (p != x) {
+    const int gp = load(labels + p);
+    if (gp != p) labels[x] = gp;
+    x = p;
+    p = gp;
+  }
+  return x;
+}
+
+// Lock-free union: hang the larger root under the smaller. If the larger
+// root was hung elsewhere meanwhile (atomicMin returns another value), its
+// old parent is united with the smaller root in the next round. Every round
+// that fails replaces a or b by a smaller index, so the loop ends.
+template <typename Ptr, typename Load>
+__device__ void unite(Ptr labels, int a, int b, Load load) {
+  while (true) {
+    a = find_halving(labels, a, load);
+    b = find_halving(labels, b, load);
+    if (a == b) return;
+    if (a > b) { const int t = a; a = b; b = t; }
+    const int old = atomicMin(const_cast<int*>(labels + b), a);
+    if (old == b) return;
+    b = old;
+  }
+}
+
+struct SharedLoad {
+  __device__ int operator()(volatile int* p) const { return *p; }
+};
+struct GlobalLoad {  // L2, not a stale L1 line: other SMs are writing
+  __device__ int operator()(int* p) const { return __ldcg(p); }
+};
 
 __global__ void __launch_bounds__(kThreads)
-hysteresis_sweep_kernel(uint8_t* __restrict__ cur,
-                        const uint8_t* __restrict__ weak, int h, int w,
-                        int tile_rows, int* __restrict__ changed) {
-  extern __shared__ uint8_t smem[];
-  const int sw = kTileW + 2;
-  const int sh = tile_rows + 2;
-  volatile uint8_t* cs = smem;
-  uint8_t* ws = smem + sh * sw;
+hyst_local(const uint8_t* __restrict__ strong,
+           const uint8_t* __restrict__ weak, int h, int w, int tile_rows,
+           int* __restrict__ labels) {
+  extern __shared__ int smem[];
+  volatile int* lab = smem;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * tile_rows;
+  const int n = tile_rows * kTileW;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < sh * sw; i += kThreads) {
-    const int sy = i / sw;
-    const int sx = i - sy * sw;
-    const int gy = y0 + sy - 1;
-    const int gx = x0 + sx - 1;
-    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
-    // __ldcg skips L1, so a neighbour's write earlier in this sweep is seen
-    // when it has reached L2 (not needed for correctness, only for speed).
-    cs[i] = in ? __ldcg(cur + (size_t)gy * w + gx) : 0;
-    ws[i] = in ? weak[(size_t)gy * w + gx] : 0;
+  // A warp holds 32 consecutive pixels of one row (kTileW and n are
+  // multiples of 32, so whole warps run each round). Each pixel of F starts
+  // as a child of the first pixel of its run of F within those 32, so runs
+  // are stars and the unions below link runs, not pixels. The masks are
+  // read kLoadAhead rounds at a time, so a thread's loads are in flight
+  // together.
+  const int lane = tid & 31;
+  for (int i0 = 0; i0 < n; i0 += kLoadAhead * kThreads) {
+    bool f[kLoadAhead];
+#pragma unroll
+    for (int k = 0; k < kLoadAhead; ++k) {
+      const int i = i0 + k * kThreads + tid;
+      const int gy = y0 + i / kTileW;
+      const int gx = x0 + i % kTileW;
+      f[k] = false;
+      if (i < n && gy < h && gx < w) {
+        const size_t g = (size_t)gy * w + gx;
+        f[k] = strong[g] | weak[g];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kLoadAhead; ++k) {
+      const int i = i0 + k * kThreads + tid;
+      if (i < n) {  // uniform across the warp: n is a multiple of 128
+        const unsigned gaps =
+            ~__ballot_sync(0xffffffffu, f[k]) & ((1u << lane) - 1);
+        lab[i] = f[k] ? i - lane + (gaps ? 32 - __clz(gaps) : 0) : -1;
+      }
+    }
   }
   __syncthreads();
 
-  const int n_in = tile_rows * kTileW;
-  int grew = 0;
-  while (true) {
-    int ch = 0;
-    for (int i = tid; i < n_in; i += kThreads) {
-      const int p = (1 + i / kTileW) * sw + 1 + i % kTileW;
-      if (ws[p] && !cs[p]) {
-        if (cs[p - sw - 1] | cs[p - sw] | cs[p - sw + 1] | cs[p - 1] |
-            cs[p + 1] | cs[p + sw - 1] | cs[p + sw] | cs[p + sw + 1]) {
-          cs[p] = 1;
-          ch = 1;
-        }
+  // Each 8-neighbour edge is the backward edge (left, up-left, up,
+  // up-right) of one of its ends. An edge is skipped where other edges in
+  // the tile already join its ends: left inside a warp's 32 pixels (one
+  // run), up where left and up-left are in F (left joins up-left, which
+  // sits in up's run), up-left where left or up is in F, up-right where up
+  // or right is in F.
+  for (int i = tid; i < n; i += kThreads) {
+    if (lab[i] < 0) continue;
+    const int lx = i % kTileW;
+    const bool left = lx > 0 && lab[i - 1] >= 0;
+    const bool right = lx + 1 < kTileW && lab[i + 1] >= 0;
+    if (left && lx % 32 == 0) unite(lab, i, i - 1, SharedLoad());
+    if (i >= kTileW) {
+      const int u = i - kTileW;
+      const bool up_left = lx > 0 && lab[u - 1] >= 0;
+      if (lab[u] >= 0) {
+        if (!(left && up_left)) unite(lab, i, u, SharedLoad());
+      } else {
+        if (up_left && !left) unite(lab, i, u - 1, SharedLoad());
+        if (lx + 1 < kTileW && !right && lab[u + 1] >= 0)
+          unite(lab, i, u + 1, SharedLoad());
       }
     }
-    if (!__syncthreads_or(ch)) break;
-    grew = 1;
   }
-  if (!grew) return;  // uniform across the CTA: it came from __syncthreads_or
+  __syncthreads();
 
-  // Interior pixels belong to this CTA alone, so the write-back races with
-  // nothing but halo reads of other CTAs (see the note above).
-  for (int i = tid; i < n_in; i += kThreads) {
+  for (int i = tid; i < n; i += kThreads) {
     const int gy = y0 + i / kTileW;
     const int gx = x0 + i % kTileW;
-    if (gy < h && gx < w) {
-      cur[(size_t)gy * w + gx] = cs[(1 + i / kTileW) * sw + 1 + i % kTileW];
+    if (gy >= h || gx >= w) continue;
+    int v = -1;
+    if (lab[i] >= 0) {
+      const int r = find_halving(lab, i, SharedLoad());
+      v = (y0 + r / kTileW) * w + x0 + r % kTileW;
     }
+    labels[(size_t)gy * w + gx] = v;
   }
-  if (tid == 0) atomicOr(changed, 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hyst_merge(int h, int w, int tile_rows, int* __restrict__ labels) {
+  const int x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * tile_rows;
+  const int tw = min(kTileW, w - x0);
+  const int th = min(tile_rows, h - y0);
+  const int ty = blockIdx.y;
+  const int tx = blockIdx.x;
+  // The tile's top row, then its left and right columns below that row:
+  // the only pixels with a backward neighbour in another tile.
+  const int n = tw + 2 * (th - 1);
+  for (int k = threadIdx.x; k < n; k += kThreads) {
+    int y, x;
+    if (k < tw) {
+      y = y0;
+      x = x0 + k;
+    } else if (k < tw + th - 1) {
+      y = y0 + 1 + (k - tw);
+      x = x0;
+    } else {
+      y = y0 + 1 + (k - tw - (th - 1));
+      x = x0 + tw - 1;
+    }
+    const int p = y * w + x;
+    if (__ldcg(labels + p) < 0) continue;
+    auto in_f = [&](int yy, int xx) {
+      return yy >= 0 && xx >= 0 && xx < w && __ldcg(labels + yy * w + xx) >= 0;
+    };
+    auto other_tile = [&](int yy, int xx) {
+      return yy / tile_rows != ty || xx / kTileW != tx;
+    };
+    const bool left = in_f(y, x - 1);
+    const bool up_left = in_f(y - 1, x - 1);
+    const bool up = in_f(y - 1, x);
+    const bool up_right = in_f(y - 1, x + 1);
+    const bool right = in_f(y, x + 1);
+    // The skips of hyst_local, now across tiles: every horizontal edge is
+    // united (inside a tile by hyst_local, across by a left union here),
+    // and a pixel that skips `up` relies on its left neighbour, a border
+    // pixel too, uniting with that neighbour's up.
+    if (left && other_tile(y, x - 1)) unite(labels, p, p - 1, GlobalLoad());
+    if (up && other_tile(y - 1, x) && !(left && up_left))
+      unite(labels, p, p - w, GlobalLoad());
+    if (up_left && other_tile(y - 1, x - 1) && !left && !up)
+      unite(labels, p, p - w - 1, GlobalLoad());
+    if (up_right && other_tile(y - 1, x + 1) && !up && !right)
+      unite(labels, p, p - w + 1, GlobalLoad());
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+hyst_mark(const uint8_t* __restrict__ strong, int n, int* __restrict__ labels) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n || !strong[p]) return;
+  const int r = find_root(labels, p);
+  if (__ldcg(labels + r) >= 0) atomicOr(labels + r, kMarked);
+}
+
+__global__ void __launch_bounds__(kThreads)
+hyst_output(const int* __restrict__ labels, int n, uint8_t* __restrict__ out) {
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  uint8_t o = 0;
+  if (labels[p] != -1) o = labels[find_root(labels, p)] < 0;
+  out[p] = o;
 }
 
 }  // namespace
 
 extern "C" {
 
-// One sweep over the plane. `cur` (h, w) uint8 0/1 is updated in place;
-// `weak` (h, w) uint8 0/1; `changed` one int32 the caller zeroes first.
-// Returns cudaGetLastError() after the launch.
-int mg_hysteresis_sweep(void* cur, const void* weak, int h, int w,
-                        int tile_rows, void* changed, void* stream) {
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + tile_rows - 1) / tile_rows);
-  const size_t smem = 2 * (size_t)(tile_rows + 2) * (kTileW + 2);
-  hysteresis_sweep_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<uint8_t*>(cur), static_cast<const uint8_t*>(weak), h, w,
-      tile_rows, static_cast<int*>(changed));
+// Hysteresis of one plane: `strong`, `weak` (h, w) uint8 0/1, `labels`
+// (h, w) int32 scratch, `out` (h, w) uint8 0/1; h * w < 2^31 - 1. Four
+// launches on `stream`, no synchronisation. Returns the first
+// cudaGetLastError() that is not cudaSuccess, else 0.
+int mg_hysteresis(const void* strong, const void* weak, int h, int w,
+                  int tile_rows, void* labels, void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* st = static_cast<const uint8_t*>(strong);
+  int* lab = static_cast<int*>(labels);
+  const size_t smem = (size_t)tile_rows * kTileW * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hyst_local, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 tiles((w + kTileW - 1) / kTileW, (h + tile_rows - 1) / tile_rows);
+  const int n = h * w;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaError_t e;
+  hyst_local<<<tiles, kThreads, smem, s>>>(
+      st, static_cast<const uint8_t*>(weak), h, w, tile_rows, lab);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  hyst_merge<<<tiles, kThreads, 0, s>>>(h, w, tile_rows, lab);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  hyst_mark<<<blocks, kThreads, 0, s>>>(st, n, lab);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  hyst_output<<<blocks, kThreads, 0, s>>>(lab, n,
+                                          static_cast<uint8_t*>(out));
   return (int)cudaGetLastError();
 }
 

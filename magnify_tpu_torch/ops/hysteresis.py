@@ -3,8 +3,10 @@
 The counterpart of ``magnify_tpu.ops.pallas_kernels``: both of its Pallas
 kernels (the whole-plane ``_hysteresis_call`` and the tiled
 ``_hysteresis_tiled_call``) compute the least fixpoint of
-``cur = cur | (weak & dilate8(cur))`` from ``cur = strong``, and one tiled
-CUDA kernel computes it here for every plane size.
+``cur = cur | (weak & dilate8(cur))`` from ``cur = strong``. The CUDA
+kernel computes the same set as ``F & (the 8-connected component of F
+holds a strong pixel)`` with ``F = weak | strong`` (the argument is in the
+source header), by union-find labelling in four launches per plane.
 
 :func:`hysteresis` launches the kernel for CUDA tensors and runs
 :func:`hysteresis_plain` (the XLA ``dilate8`` loop of
@@ -18,15 +20,19 @@ import torch.nn.functional as F
 
 from magnify_tpu_torch import _build
 
-__all__ = ["hysteresis", "hysteresis_plain", "launches", "last_sweeps"]
+__all__ = ["hysteresis", "hysteresis_plain", "launches", "LAUNCHES_PER_CALL"]
 
-#: Kernel launches (one per sweep) since the count was last reset.
+#: Kernel launches since the count was last reset.
 launches = 0
-#: Sweeps the last CUDA call took to reach the fixpoint.
-last_sweeps = 0
+#: Kernel launches of one call on a non-empty plane: local labelling,
+#: border merge, seed marking, output.
+LAUNCHES_PER_CALL = 4
 
-DEFAULT_TILE_ROWS = 32
-MAX_TILE_ROWS = 128  # keeps the two shared-memory tiles under 48 KB
+# 16 x 128 tiles: of 8/16/32/64/128 rows, the fastest on a 1024^2 frame's
+# masks and within 2% of 8 rows on an 1844^2 frame's (PERF.md, Findings;
+# scripts/torch_profile_frame.py sweeps them).
+DEFAULT_TILE_ROWS = 16
+MAX_TILE_ROWS = 128  # 64 KB of int32 labels per tile in shared memory
 
 
 def dilate8(m: torch.Tensor) -> torch.Tensor:
@@ -56,12 +62,13 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
     """Grow strong seeds through weak pixels (8-connectivity) to fixpoint.
 
     ``strong``/``weak``: (H, W) bool on one device. CPU tensors take the
-    plain twin; CUDA tensors take the kernel, sweeping until a sweep
-    changes nothing. ``tile_rows`` sets the kernel's tile height (the
-    ``tile_rows`` of the Pallas tiled kernel): small tiles force edge chains
-    across many tile borders.
+    plain twin; CUDA tensors take the kernel: a fixed sequence of
+    :data:`LAUNCHES_PER_CALL` launches on the current stream, with no host
+    sync. ``tile_rows`` sets the kernel's tile height (the ``tile_rows`` of
+    the Pallas tiled kernel): small tiles force edge chains across many
+    tile borders.
     """
-    global launches, last_sweeps
+    global launches
     if strong.device.type == "cpu" and weak.device.type == "cpu":
         return hysteresis_plain(strong, weak)
     if strong.device.type != "cuda" or weak.device != strong.device:
@@ -78,24 +85,18 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
     if not 1 <= tile_rows <= MAX_TILE_ROWS:
         raise ValueError(f"tile_rows must be in [1, {MAX_TILE_ROWS}]")
     h, w = strong.shape
-    weak_u8 = weak.contiguous().view(torch.uint8)
+    if h * w >= 2**31 - 1:
+        raise ValueError(f"hysteresis: plane {h}x{w} exceeds int32 labels")
     out = torch.empty((h, w), dtype=torch.uint8, device=strong.device)
-    out.copy_(strong)
     if h == 0 or w == 0:
         return out.view(torch.bool)
-    changed = torch.empty(1, dtype=torch.int32, device=strong.device)
-    lib = _build.load()
-    stream = torch.cuda.current_stream(strong.device).cuda_stream
-    sweeps = 0
-    while True:
-        changed.zero_()
-        err = lib.mg_hysteresis_sweep(out.data_ptr(), weak_u8.data_ptr(), h,
-                                      w, tile_rows, changed.data_ptr(),
-                                      stream)
-        launches += 1
-        sweeps += 1
-        _build.check(err, "mg_hysteresis_sweep")
-        if int(changed.item()) == 0:
-            break
-    last_sweeps = sweeps
+    strong_u8 = strong.contiguous().view(torch.uint8)
+    weak_u8 = weak.contiguous().view(torch.uint8)
+    labels = torch.empty((h, w), dtype=torch.int32, device=strong.device)
+    err = _build.load().mg_hysteresis(
+        strong_u8.data_ptr(), weak_u8.data_ptr(), h, w, tile_rows,
+        labels.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(strong.device).cuda_stream)
+    launches += LAUNCHES_PER_CALL
+    _build.check(err, "mg_hysteresis")
     return out.view(torch.bool)

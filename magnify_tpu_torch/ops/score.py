@@ -75,45 +75,48 @@ def _ring_conv_kernel_q8(min_radius: int, max_radius: int):
     return q, scale
 
 
-def compact_taps(q: np.ndarray):
-    """Nonzero taps of an int8 kernel (n_radii, C, K, K), per radius.
+def pack_positions(q: np.ndarray):
+    """The int8 ring kernel (n_radii, 8, K, K) by position, per radius.
 
-    Returns (taps int32, offsets int32 (n_radii + 1,)): radius r's taps are
-    ``taps[offsets[r]:offsets[r + 1]]``, each packed as
-    ``i | j << 8 | c << 16 | w << 24`` (kernel row i, column j, channel c,
-    signed weight w), in (c, i, j) order.
+    Returns (table int32 (n_pos, 4), offsets int32 (n_radii + 1,)): radius
+    r's positions are ``table[offsets[r]:offsets[r + 1]]``, in (i, j) order,
+    each ``(i | j << 16, w_lo, w_hi, r)`` with kernel row i and column j,
+    and the weights of channels 0-3 (``w_lo``) and 4-7 (``w_hi``) packed as
+    4 signed bytes each, channel c's in byte ``c % 4`` (the operand layout
+    of CUDA's ``__dp4a``). A position is listed where any channel's weight
+    is nonzero.
     """
     n_r, c_in, k, _ = q.shape
-    if c_in > 255 or k > 256:
-        raise ValueError(f"kernel {q.shape} too large for 8-bit tap fields")
-    packed, offsets = [], [0]
+    if c_in != 8 or k > 1 << 15:
+        raise ValueError(f"kernel {q.shape}: 8 channels and K < 32768 "
+                         "required")
+    rows, offsets = [], [0]
     for r in range(n_r):
-        c, i, j = np.nonzero(q[r])
-        w = q[r, c, i, j].astype(np.int64)
-        packed.append(i | j << 8 | c << 16 | (w & 0xFF) << 24)
-        offsets.append(offsets[-1] + len(c))
-    taps = np.concatenate(packed).astype(np.int64).astype(np.uint32)
-    return taps.view(np.int32), np.asarray(offsets, np.int32)
+        i, j = np.nonzero((q[r] != 0).any(axis=0))
+        words = np.ascontiguousarray(q[r][:, i, j].T).view(np.int32)
+        rows.append(np.column_stack([i | j << 16, words,
+                                     np.full_like(i, r)]))
+        offsets.append(offsets[-1] + len(i))
+    table = np.concatenate(rows).astype(np.int32).reshape(-1, 4)
+    return table, np.asarray(offsets, np.int32)
 
 
 class RingWeights(NamedTuple):
     """One int8 ring kernel on one device, in both layouts: ``dense``
-    (n_radii, C, K, K) int8 for the plain twin, ``taps``/``offsets`` (see
-    :func:`compact_taps`) for the CUDA kernel."""
+    (n_radii, C, K, K) int8 for the plain twin, ``table``/``offsets`` (see
+    :func:`pack_positions`) for the CUDA kernel."""
 
     dense: torch.Tensor
-    taps: torch.Tensor
+    table: torch.Tensor
     offsets: torch.Tensor
-    max_taps: int
 
 
 def ring_weights(q: np.ndarray, device) -> RingWeights:
-    taps, offsets = compact_taps(q)
+    table, offsets = pack_positions(q)
     return RingWeights(
         dense=torch.as_tensor(q, device=device),
-        taps=torch.as_tensor(taps, device=device),
+        table=torch.as_tensor(table, device=device),
         offsets=torch.as_tensor(offsets, device=device),
-        max_taps=int(np.diff(offsets).max()),
     )
 
 
@@ -124,6 +127,9 @@ def _cached_tables(min_radius: int, max_radius: int, device: str):
     dq = (scale / (127.0 * 127.0)).astype(np.float32)
     return ring_weights(q, device), torch.as_tensor(dq, device=device)
 
+
+# Shared memory one CTA may use on sm_90 (232,448 bytes).
+_MAX_SMEM = 227 * 1024
 
 # The CPU convolution unfolds C*K*K doubles per output pixel (46 GB for a
 # 1024^2 frame's padded plane at radii 8-12): bands of rows bound it.
@@ -152,11 +158,11 @@ def ring_corr_plain(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
 def ring_corr(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
     """Exact int8 ring correlation: (C, H, W) int8 features -> (n_radii, H,
     W) int32, zero padded (SAME). CPU tensors take the plain twin; CUDA
-    tensors take the kernel."""
+    tensors take the kernel, which needs C = 8."""
     global launches
     if feats.device.type == "cpu" and weights.dense.device.type == "cpu":
         return ring_corr_plain(feats, weights)
-    for name, t in (("taps", weights.taps), ("offsets", weights.offsets)):
+    for name, t in (("table", weights.table), ("offsets", weights.offsets)):
         if t.device != feats.device or t.dtype != torch.int32:
             raise ValueError(f"ring_corr: {name} must be int32 on "
                              f"{feats.device}, got {t.dtype} on {t.device}")
@@ -166,25 +172,28 @@ def ring_corr(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
         raise TypeError(f"ring_corr: (C, H, W) int8 features required, got "
                         f"{feats.dtype} {tuple(feats.shape)}")
     n_r, c_in, k, k2 = weights.dense.shape
-    if k != k2 or k % 2 == 0 or feats.shape[0] != c_in:
+    if k != k2 or k % 2 == 0 or feats.shape[0] != c_in or c_in != 8:
         raise ValueError(f"ring_corr: kernel {tuple(weights.dense.shape)} "
-                         f"does not fit features {tuple(feats.shape)}")
+                         f"does not fit features {tuple(feats.shape)} "
+                         "(8 channels required)")
     rad = k // 2
-    plane = (32 + 2 * rad) ** 2
-    smem = 4 * ((c_in * plane + 3) // 4) + 4 * weights.max_taps
-    if c_in * plane >= 1 << 23 or smem > 227 * 1024:
-        raise ValueError(f"ring_corr: kernel half-width {rad} with {c_in} "
-                         "channels exceeds the kernel's shared memory")
+    n_pos = weights.table.shape[0]
+    lib = _build.load()
+    smem = lib.mg_ring_corr_smem(rad, n_pos)
+    if not 0 < smem <= _MAX_SMEM:
+        raise ValueError(f"ring_corr: kernel half-width {rad} with {n_pos} "
+                         "positions exceeds the kernel's shared memory")
     feats = feats.contiguous()
+    table = weights.table.contiguous()
+    offsets = weights.offsets.contiguous()
     _, h, w = feats.shape
     out = torch.empty((n_r, h, w), dtype=torch.int32, device=feats.device)
     if h == 0 or w == 0:
         return out
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = _build.load().mg_ring_corr(
-        feats.data_ptr(), c_in, h, w, weights.taps.data_ptr(),
-        weights.offsets.data_ptr(), n_r, weights.max_taps, rad,
-        out.data_ptr(), stream)
+    err = lib.mg_ring_corr(
+        feats.data_ptr(), h, w, table.data_ptr(), offsets.data_ptr(), n_r,
+        n_pos, rad, out.data_ptr(),
+        torch.cuda.current_stream(feats.device).cuda_stream)
     launches += 1
     _build.check(err, "mg_ring_corr")
     return out

@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Device time of magnify_tpu_torch's hand kernels and of warm frames.
+
+Run from the root of a checkout on a machine with one CUDA device:
+
+    python3 scripts/torch_profile_frame.py
+
+With ``torch.profiler`` (CUDA activity), at the shapes of ``chip_smoke.py``'s
+frames A (1024^2) and B (1844^2 stitched plane, 1892^2 padded features):
+
+1. each hand kernel's device time per call (the sum of its CUDA kernels'
+   durations over 20 calls, divided by 20), kernel by kernel, beside the
+   host wall time per call of the same loop, and for hysteresis at every
+   tile height of 8, 16, 32, 64 and 128 rows;
+2. for 3 warm ``beads()`` frames of A and then of B: the wall time, the
+   device busy time (the union of all kernel intervals), the idle share,
+   and the ten kernels with the most device time.
+
+It prints the card's name and power limit first. It exits 2 without a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import collections
+import pathlib
+import re
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def _kernels(prof):
+    import torch
+
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _busy_us(events) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e <= end:
+            continue
+        busy += e - max(s, end)
+        end = e
+    return busy
+
+
+def _profile(fn, reps: int):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return _kernels(prof), wall_ms
+
+
+def kernel_times(label, fn, prefixes, reps=20) -> None:
+    events, wall_ms = _profile(fn, reps)
+    per = collections.Counter()
+    for e in events:
+        for p in prefixes:
+            at = e.name.find(p)
+            if at >= 0:
+                key = re.split(r"[(<]", e.name[at:])[0]
+                per[key] += e.time_range.elapsed_us()
+    total = sum(per.values()) / reps
+    detail = ", ".join(f"{k} {v / reps:.2f} us" for k, v in per.items())
+    print(f"{label}: device {total:.2f} us per call ({detail}); host wall "
+          f"{wall_ms / reps * 1e3:.2f} us per call", flush=True)
+
+
+def frame_profile(label, fn, reps=3) -> None:
+    events, wall_ms = _profile(fn, reps)
+    busy_ms = _busy_us(events) / 1e3
+    top = collections.Counter()
+    for e in events:
+        top[e.name[:60]] += e.time_range.elapsed_us()
+    print(f"{label}: wall {wall_ms / reps:.3f} ms per frame, device busy "
+          f"{busy_ms / reps:.3f} ms per frame, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}, {len(events) // reps} kernels per "
+          "frame", flush=True)
+    for name, us in top.most_common(10):
+        print(f"    {us / reps / 1e3:8.4f} ms  {name}", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+
+    import chip_smoke as cs
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.ops import hysteresis as hyst
+    from magnify_tpu_torch.ops import score
+
+    dev = torch.device("cuda")
+    weights, _ = score._cached_tables(8, 12, str(dev))
+    for name, img in (("frame A", cs.frame_a()[0]),
+                      ("frame B", cs._frame_b_plane())):
+        strong, weak, feats = cs._stages(img, dev)
+        for tile_rows in (8, 16, 32, 64, 128):
+            kernel_times(f"hysteresis {name} {tuple(strong.shape)} "
+                         f"tile_rows={tile_rows}",
+                         lambda: hyst.hysteresis(strong, weak, tile_rows),
+                         ("hyst_",))
+        kernel_times(f"ring_corr {name} {tuple(feats.shape)}",
+                     lambda: score.ring_corr(feats, weights),
+                     ("ring_corr_kernel",))
+    for case, kw in (("A", cs.FRAME_A_KW), ("B", cs.FRAME_B_KW)):
+        data = cs.as_dataarray(mt, case)
+        frame_profile(f"beads frame {case}",
+                      lambda: mt.beads(data, device=dev, **kw))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

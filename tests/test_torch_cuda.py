@@ -46,7 +46,7 @@ def test_hysteresis_kernel_matches_plain(cuda, shape, tile_rows):
     assert torch.equal(got, thyst.hysteresis_plain(s, w))
 
 
-def test_hysteresis_kernel_serpentine(cuda):
+def _serpentine():
     chain = np.zeros((96, 300), bool)
     for k, r in enumerate(range(4, 92, 4)):
         chain[r, 4:296] = True
@@ -54,15 +54,48 @@ def test_hysteresis_kernel_serpentine(cuda):
             chain[r:r + 5, 295 if k % 2 == 0 else 4] = True
     strong = np.zeros_like(chain)
     strong[4, 4] = True
-    s, w = torch.as_tensor(strong).to(cuda), torch.as_tensor(chain).to(cuda)
+    return strong, chain
+
+
+def test_hysteresis_kernel_serpentine(cuda):
+    s, w = (torch.as_tensor(a).to(cuda) for a in _serpentine())
     got = thyst.hysteresis(s, w, tile_rows=8)
     assert torch.equal(got, thyst.hysteresis_plain(s, w))
     assert int(got.sum()) == int(w.sum())
 
 
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (1000, 777), (1844, 1844)])
+def test_hysteresis_kernel_strong_outside_weak(cuda, shape):
+    rng = np.random.default_rng(5)
+    strong = rng.random(shape) < 0.02
+    weak = rng.random(shape) < 0.4
+    strong.flat[0], weak.flat[0] = True, False
+    s, w = torch.as_tensor(strong).to(cuda), torch.as_tensor(weak).to(cuda)
+    got = thyst.hysteresis(s, w)
+    assert torch.equal(got, thyst.hysteresis_plain(s, w))
+
+
+def test_hysteresis_launches_fixed_by_shape(cuda):
+    """An empty mask takes as many launches as a chain across every tile."""
+    strong, chain = _serpentine()
+    counts = []
+    for s, w in ((np.zeros_like(chain), np.zeros_like(chain)),
+                 (strong, chain)):
+        before = thyst.launches
+        thyst.hysteresis(torch.as_tensor(s).to(cuda),
+                         torch.as_tensor(w).to(cuda), tile_rows=8)
+        counts.append(thyst.launches - before)
+    assert counts == [thyst.LAUNCHES_PER_CALL] * 2
+
+
 @pytest.mark.parametrize("radii,shape", [((5, 8), (70, 93)),
                                          ((8, 12), (130, 97)),
-                                         ((2, 3), (33, 32))])
+                                         ((2, 3), (33, 32)),
+                                         ((8, 12), (20, 50)),
+                                         ((8, 12), (9, 300)),
+                                         ((5, 8), (200, 13)),
+                                         ((5, 25), (64, 200)),
+                                         ((8, 12), (1892, 1892))])
 def test_ring_corr_kernel_matches_plain(cuda, radii, shape):
     rng = np.random.default_rng(3)
     feats = torch.as_tensor(

@@ -6,7 +6,11 @@ Same numpy inputs through ``magnify_tpu.ops.edge`` / ``pallas_kernels`` and
 the reference's order. The JAX functions run under ``jax.jit``, as the
 detector runs them (XLA then fuses the quantile interpolation into an FMA,
 which the port reproduces). The Pallas hysteresis runs as the JAX
-package's own tests run it on the CPU (interpret mode).
+package's own tests run it on the CPU (interpret mode). The CUDA
+hysteresis computes the fixpoint as ``F & (the 8-connected component of F
+holds a strong pixel)``, ``F = weak | strong``; that form, computed here
+with ``scipy.ndimage.label``, is held against both Pallas kernels and the
+plain twin.
 """
 
 import jax
@@ -14,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy import ndimage
 
 from magnify_tpu.ops import edge as jedge
 from magnify_tpu.ops.pallas_kernels import hysteresis as pallas_hysteresis
@@ -175,3 +180,40 @@ def test_hysteresis_plain_matches_xla_dilate_loop():
                                                  jnp.asarray(weak)))
         got = thyst.hysteresis_plain(_t(strong), _t(weak))
         np.testing.assert_array_equal(want, got.numpy())
+
+
+def _component_form(strong, weak):
+    """``F & (the 8-connected component of F holds a strong pixel)``."""
+    f = strong | weak
+    lab, _ = ndimage.label(f, structure=np.ones((3, 3), int))
+    seeded = np.unique(lab[strong])
+    return f & np.isin(lab, seeded[seeded > 0])
+
+
+def _hysteresis_case(case):
+    rng = np.random.default_rng(31)
+    if case == "serpentine":
+        return _serpentine()
+    if case == "strong outside weak":
+        strong = rng.random((90, 140)) > 0.985
+        weak = rng.random((90, 140)) > 0.62
+        assert (strong & ~weak).any()
+        return strong, weak
+    shape = {"random 100x150": (100, 150), "random 257x131": (257, 131)}[case]
+    strong = rng.random(shape) > 0.99
+    return strong, strong | (rng.random(shape) > 0.65)
+
+
+@pytest.mark.parametrize("case", ["random 100x150", "random 257x131",
+                                  "serpentine", "strong outside weak"])
+def test_hysteresis_component_form_matches_pallas_and_plain(case):
+    strong, weak = _hysteresis_case(case)
+    want = _component_form(strong, weak)
+    assert want.any() and not want.all()
+    for tile_rows in (None, 16):
+        got = pallas_hysteresis(jnp.asarray(strong), jnp.asarray(weak),
+                                tile_rows=tile_rows)
+        np.testing.assert_array_equal(want, np.asarray(got),
+                                      err_msg=f"tile_rows={tile_rows}")
+    np.testing.assert_array_equal(
+        want, thyst.hysteresis_plain(_t(strong), _t(weak)).numpy())

@@ -63,17 +63,16 @@ def test_ring_kernels_equal(radii):
 
 
 def test_compact_taps_round_trip():
-    """The CUDA kernel's tap list holds exactly the nonzero int8 weights."""
+    """The CUDA kernel's position table at the bead frame's radii: 292
+    positions holding the 2,128 nonzero weights, no position shared by two
+    radii, and every radius's sum of |weights| times 127 below 2^24."""
     q, _ = tscore._ring_conv_kernel_q8(8, 12)
-    taps, offsets = tscore.compact_taps(q)
-    assert offsets[-1] == len(taps) == 2128  # the 1024^2 bead frame's taps
-    t = taps.astype(np.int64) & 0xFFFFFFFF
-    dense = np.zeros_like(q)
-    for r in range(q.shape[0]):
-        tr = t[offsets[r]:offsets[r + 1]]
-        w = ((tr >> 24) & 0xFF).astype(np.uint8).view(np.int8)
-        dense[r, (tr >> 16) & 0xFF, tr & 0xFF, (tr >> 8) & 0xFF] = w
-    np.testing.assert_array_equal(dense, q)
+    table, offsets = tscore.pack_positions(q)
+    assert offsets[-1] == len(table) == 292
+    weights = table[:, 1:3].copy().view(np.int8)
+    assert np.count_nonzero(weights) == np.count_nonzero(q) == 2128
+    assert len(set(table[:, 0].tolist())) == len(table)
+    assert 127 * np.abs(q.astype(np.int64)).sum(axis=(1, 2, 3)).max() < 2**24
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():

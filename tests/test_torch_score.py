@@ -108,3 +108,46 @@ def test_ring_corr_plain_is_the_exact_int32_correlation():
                                            j:j + feats.shape[2]]
     assert got.dtype == np.int32
     np.testing.assert_array_equal(want, got)
+
+
+def _unpack(table, offsets, shape):
+    """The dense (n_radii, 8, K, K) int8 kernel a position table holds."""
+    dense = np.zeros(shape, np.int8)
+    for r in range(shape[0]):
+        rows = table[offsets[r]:offsets[r + 1]]
+        w = rows[:, 1:3].copy().view(np.int8)  # (n, 8): channel c in byte c
+        dense[r, :, rows[:, 0] & 0xFFFF, rows[:, 0] >> 16] = w
+    return dense
+
+
+@pytest.mark.parametrize("radii", [(2, 3), (5, 8), (8, 12), (5, 25)])
+def test_position_table_unpacks_to_the_ring_kernel(radii):
+    q, _ = tscore._ring_conv_kernel_q8(*radii)
+    table, offsets = tscore.pack_positions(q)
+    assert table.dtype == np.int32 and table.shape == (offsets[-1], 4)
+    np.testing.assert_array_equal(table[:, 3],
+                                  np.repeat(np.arange(q.shape[0]),
+                                            np.diff(offsets)))
+    np.testing.assert_array_equal(_unpack(table, offsets, q.shape), q)
+
+
+@pytest.mark.parametrize("radii", [(2, 3), (5, 8), (8, 12), (5, 25)])
+def test_position_table_evaluates_to_ring_corr_plain(radii):
+    """The kernel's arithmetic on the CPU: per position, the 8 channel
+    weights from the two packed words times the shifted feature planes,
+    summed in int64 into the position's radius."""
+    rng = np.random.default_rng(17)
+    feats = rng.integers(-128, 128, (8, 70, 93)).astype(np.int8)
+    q, _ = tscore._ring_conv_kernel_q8(*radii)
+    table, _ = tscore.pack_positions(q)
+    rad = q.shape[-1] // 2
+    h, w = feats.shape[1:]
+    fp = np.pad(feats.astype(np.int64), ((0, 0), (rad, rad), (rad, rad)))
+    got = np.zeros((q.shape[0], h, w), np.int64)
+    for ij, w_lo, w_hi, r in table:
+        i, j = ij & 0xFFFF, ij >> 16
+        wc = np.array([w_lo, w_hi], np.int32).view(np.int8)
+        got[r] += np.tensordot(wc.astype(np.int64), fp[:, i:i + h, j:j + w],
+                               axes=1)
+    want = tscore.ring_corr_plain(_t(feats), tscore.ring_weights(q, "cpu"))
+    np.testing.assert_array_equal(got, want.numpy())
