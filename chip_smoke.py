@@ -20,31 +20,47 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    (``library_ms``, a yardstick the port never calls), and computes each
    kernel's bound from the bytes it must move and the operations it must
    do;
-3. main path: ``magnify_tpu_torch.beads`` on frame A (1024^2, 110 beads)
-   and frame B (2 channels, 2 x 2 tiles of 1024^2, overlap 102, stitched
-   to 1844^2) on ``cuda``; the marks must equal the golden file
-   ``tests/data/torch_port_golden.npz`` (made by the JAX package with
-   ``scripts/make_torch_port_golden.py``), frame A must find 110/110, and
-   both kernels must have been launched by this run; then times warm
-   frames of A;
-4. prints one JSON line of kernel records (per kernel: ``launches`` in the
-   main path and ``launches_per_call``, ``ms``/``plain_ms``/``bound_ms``/
-   ``bound_share``/``library_ms`` at frame A's shapes and the same keys
-   with ``_frame_b`` at frame B's, ``bound_by``, ``max_abs_err``) and,
-   last, one JSON line ``{"ok": true, "device": {...}}``.
+3. main paths, each driven with the kernels' launch counts set to 0 just
+   before and read just after; every path must have launched both kernels:
+
+   * ``beads`` on frame A (1024^2, 110 beads) and frame B (2 channels,
+     2 x 2 tiles of 1024^2, overlap 102, stitched to 1844^2) on ``cuda``;
+     the marks must equal the golden file
+     ``tests/data/torch_port_golden.npz`` (made by the JAX package with
+     ``scripts/make_torch_port_golden.py``) and frame A must find 110/110;
+   * ``mrbles`` on frame M (4 channels x 1024^2, 27 beads of each of 4
+     codes, the JAX package's MRBLE bench workload): rows, fg/bg/roi
+     digests and decoded tags must equal the golden file, ``ln_vol`` within
+     ``LN_VOL_RTOL``; prints found / coded / outliers and the decode's
+     stage times with the decode on the card and on the CPU;
+   * ``beads_stream`` over 8 frames A and ``mrbles_stream`` over 6 frames M
+     (seeds 0-5): every streamed frame must equal the single-frame call on
+     that frame (rows, digests, tags), the launch counts must be frames x
+     the per-frame count, and ms per frame streamed is printed next to ms
+     per frame serial;
+4. decode at device scale: ``identify_mrbles`` alone on 8,192 marks x 5
+   channels x 32^2 ROIs over the 24-code panel; tags on ``cuda`` must equal
+   tags on ``cpu``; prints the stage times on both;
+5. prints one JSON line of kernel records (per kernel: ``launches`` over
+   all main paths, ``launches_by_path`` and ``launches_per_call``,
+   ``ms``/``plain_ms``/``bound_ms``/``bound_share``/``library_ms`` at frame
+   A's shapes and the same keys with ``_frame_b`` at frame B's,
+   ``bound_by``, ``max_abs_err``) and, last, one JSON line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 at once. ``--kernels-only`` stops after
 phase 2.
 
-The frame builders (:func:`frame_a`, :func:`frame_b`) need numpy and the
-port's copy of the library rasterizer only, so the golden-file script
-imports them from here.
+The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`) need
+numpy and the port's copy of the library rasterizer only, so the golden-file
+script imports them from here.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import pathlib
 import statistics
@@ -121,10 +137,71 @@ def frame_b(seed: int = 1) -> np.ndarray:
     return out
 
 
-def as_dataarray(pkg, case: str):
-    """Frame ``case`` ("A" or "B") as a DataArray of package ``pkg``."""
+# Frame M: the MRBLE workload. Three lanthanides seen through four
+# channels; four codes, the dy/eu and sm/eu ratios each 0 or 1.
+MRBLES_CHANNELS = ["435", "474", "536", "620"]
+MRBLES_LNS = ["eu", "dy", "sm"]
+MRBLES_SPECTRA = np.array([
+    [1.0, 0.2, 0.1, 0.9],
+    [0.1, 1.0, 0.3, 0.0],
+    [0.0, 0.1, 0.9, 0.1],
+])
+MRBLES_CODES = {"code_a": (0.0, 0.0), "code_b": (1.0, 0.0),
+                "code_c": (0.0, 1.0), "code_d": (1.0, 1.0)}
+FRAME_M_KW = dict(min_bead_diameter=16, max_bead_diameter=24, overlap=0,
+                  min_roundness=0.3, search_channel="620")
+# The card's f32 sums of the fg pixels differ from the host's in the last
+# bits (magnify_tpu_torch.ops.reduce.MEAN_RTOL = 2e-6 of ~10^2 intensities),
+# and the 3 x 4 least squares carries that into the volumes.
+LN_VOL_RTOL = 1e-4
+
+
+def frame_m(seed: int = 2, n_per_code: int = 27):
+    """The MRBLE frame: 4 channels x 1024^2 float32, ``n_per_code`` beads of
+    radius 10 for each of the four codes at random non-touching positions,
+    eu volumes 80-120, over a clipped Gaussian background (the JAX
+    package's bench workload). Returns (planes, n_beads)."""
+    rng = np.random.default_rng(seed)
+    planes = np.zeros((len(MRBLES_CHANNELS), TILE, TILE), np.float32)
+    disk = filled_circle_points(10)
+    centers = []
+    for dy_r, sm_r in MRBLES_CODES.values():
+        placed = 0
+        while placed < n_per_code:
+            pos = rng.integers(40, TILE - 40, 2)
+            if any(abs(pos[0] - c[0]) < 34 and abs(pos[1] - c[1]) < 34
+                   for c in centers):
+                continue
+            centers.append(pos)
+            eu = rng.uniform(80, 120)
+            intensity = np.array([eu, dy_r * eu, sm_r * eu]) @ MRBLES_SPECTRA
+            pts = disk + pos
+            for ci in range(len(MRBLES_CHANNELS)):
+                planes[ci, pts[:, 0], pts[:, 1]] = intensity[ci]
+            placed += 1
+    planes = np.maximum(
+        planes + rng.normal(10.0, 2.5, planes.shape).astype(np.float32), 0.0)
+    return planes, len(centers)
+
+
+def mrbles_csvs():
+    """(spectra, codes) of frame M as CSV file-likes."""
+    spectra = ["name," + ",".join(MRBLES_CHANNELS)]
+    spectra += [f"{n}," + ",".join(map(str, row))
+                for n, row in zip(MRBLES_LNS, MRBLES_SPECTRA)]
+    codes = ["name,eu,dy,sm"]
+    codes += [f"{n},1.0,{d},{s}" for n, (d, s) in MRBLES_CODES.items()]
+    return io.StringIO("\n".join(spectra)), io.StringIO("\n".join(codes))
+
+
+def as_dataarray(pkg, case: str, seed=None):
+    """Frame ``case`` ("A", "B" or "M") as a DataArray of package ``pkg``."""
     if case == "A":
         return pkg.DataArray(frame_a()[0], dims=("y", "x"))
+    if case == "M":
+        planes, _n = frame_m(2 if seed is None else seed)
+        return pkg.DataArray(planes, dims=("channel", "y", "x"),
+                             coords={"channel": MRBLES_CHANNELS})
     return pkg.DataArray(frame_b(), dims=("channel", "row", "col", "y", "x"),
                          coords={"channel": ["red", "green"]})
 
@@ -137,12 +214,17 @@ def digest(a) -> str:
 
 
 def summarize(xp) -> dict:
-    """What the golden file holds of one ``beads`` result: the bead rows
-    (y, x) in mark order and digests of the fg/bg masks and ROI crops."""
+    """What the golden file holds of one result: the bead rows (y, x) in
+    mark order and digests of the fg/bg masks and ROI crops; of an
+    ``mrbles`` result also the decoded tags (as unicode) and ``ln_vol``."""
     rows = np.stack([np.asarray(xp.y.values, float).ravel(),
                      np.asarray(xp.x.values, float).ravel()], axis=1)
-    return {"rows": rows, "fg": digest(xp.fg.values),
-            "bg": digest(xp.bg.values), "roi": digest(xp["roi"].values)}
+    out = {"rows": rows, "fg": digest(xp.fg.values),
+           "bg": digest(xp.bg.values), "roi": digest(xp["roi"].values)}
+    if "tag" in xp.variables:
+        out["tag"] = np.asarray(xp.tag.values).astype(str)
+        out["ln_vol"] = np.asarray(xp["ln_vol"].values, np.float64)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -402,33 +484,94 @@ def _check_case(case: str, xp, golden) -> None:
                              f"differ from the golden {len(want_rows)}")
     _say(f"frame {case}: {len(want_rows)} marks, rows and fg/bg/roi digests "
          "equal the golden file")
+    if "tag" not in got:
+        return
+    want_tag = golden[f"{case}_tag"]
+    if not np.array_equal(got["tag"], want_tag):
+        raise AssertionError(
+            f"frame {case}: {int((got['tag'] != want_tag).sum())} of "
+            f"{len(want_tag)} decoded tags differ from the golden file")
+    want_vol = golden[f"{case}_ln_vol"]
+    scale = float(np.abs(want_vol).max())
+    err = float(np.abs(got["ln_vol"] - want_vol).max())
+    if not np.isfinite(got["ln_vol"]).all() or err > LN_VOL_RTOL * scale:
+        raise AssertionError(f"frame {case}: ln_vol max |diff| {err} over "
+                             f"{LN_VOL_RTOL} x {scale}")
+    _say(f"frame {case}: {len(want_tag)} tags equal the golden file, ln_vol "
+         f"max |diff| {err:.3e} (bound {LN_VOL_RTOL} x max |ln_vol| "
+         f"{scale:.3f})")
+
+
+def _assert_same_frame(what: str, out, ref) -> None:
+    """A streamed frame against the single-frame call on the same input."""
+    got, want = summarize(out), summarize(ref)
+    for key, val in want.items():
+        same = (np.array_equal(got[key], val) if isinstance(val, np.ndarray)
+                else got[key] == val)
+        if not same:
+            raise AssertionError(f"{what}: {key} differs from the "
+                                 "single-frame call")
+
+
+class _Launches:
+    """The kernels' launch counts over one path: zeroed on entry, read and
+    checked on exit."""
+
+    def __init__(self, by_path: dict, path: str):
+        from magnify_tpu_torch.ops import hysteresis, score
+
+        self.mods = {"hysteresis": hysteresis, "ring_corr": score}
+        self.by_path, self.path = by_path, path
+
+    def __enter__(self):
+        for mod in self.mods.values():
+            mod.launches = 0
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            return False
+        import torch
+
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in self.mods.items()}
+        _say(f"kernel launches in {self.path}: {counts}")
+        for name, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{self.path} never launched {name}")
+        self.by_path[self.path] = counts
+        return False
+
+
+def _mrbles(mt, data, dev, decode_device=None):
+    """``mt.mrbles`` on frame-M data; with ``decode_device`` the decode
+    component is rebuilt on that device (detection stays on ``dev``)."""
+    spectra, codes = mrbles_csvs()
+    if decode_device is None:
+        return mt.mrbles(data, spectra=spectra, codes=codes, device=dev,
+                         **FRAME_M_KW)
+    pipe = mt.mrbles_pipe(spectra=spectra, codes=codes, device=dev,
+                          **FRAME_M_KW)
+    pipe.remove_pipe("identify_mrbles")
+    pipe.add_pipe("identify_mrbles", after="find_beads", spectra=spectra,
+                  codes=codes, reference="eu", device=decode_device)
+    return pipe(data=data)
 
 
 def main_path(records: list, dev) -> None:
-    import torch
-
     import magnify_tpu_torch as mt
-    from magnify_tpu_torch.ops import hysteresis as hyst
-    from magnify_tpu_torch.ops import score
+    from magnify_tpu_torch.components import identify
 
     golden = np.load(GOLDEN)
+    by_path: dict = {}
+
+    # --- beads, frames A and B ------------------------------------------
     data_a = as_dataarray(mt, "A")
     data_b = as_dataarray(mt, "B")
-    hyst.launches = 0
-    score.launches = 0
-    xa = mt.beads(data_a, device=dev, **FRAME_A_KW)
-    xb = mt.beads(data_b, device=dev, **FRAME_B_KW)
-    torch.cuda.synchronize()
-    counts = {"hysteresis": hyst.launches, "ring_corr": score.launches}
-    _say(f"kernel launches in the main path (frames A and B): {counts}")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"the main path never launched {name}")
-    for rec in records:
-        rec["launches"] = counts[rec["name"]]
-        _say(f"{rec['name']}: {rec['launches_per_call']} launches per call, "
-             f"{rec['launches']} in the main path")
-
+    with _Launches(by_path, "beads A"):
+        xa = mt.beads(data_a, device=dev, **FRAME_A_KW)
+    with _Launches(by_path, "beads B"):
+        xb = mt.beads(data_b, device=dev, **FRAME_B_KW)
     n_true = frame_a()[1]
     n_a = xa["roi"].sizes["mark"]
     if n_a != n_true:
@@ -438,10 +581,178 @@ def main_path(records: list, dev) -> None:
     _say(f"frame B: roi {xb['roi'].shape}")
     _check_case("B", xb, golden)
 
-    ms = _time_ms(lambda: mt.beads(data_a, device=dev, **FRAME_A_KW), 7)
-    _say(f"frame A warm beads(): {ms:.3f} ms per frame (median of 7)")
+    ms_a = _time_ms(lambda: mt.beads(data_a, device=dev, **FRAME_A_KW), 5)
+    _say(f"frame A warm beads(): {ms_a:.3f} ms per frame (median of 5)")
     ms_b = _time_ms(lambda: mt.beads(data_b, device=dev, **FRAME_B_KW), 3)
     _say(f"frame B warm beads(): {ms_b:.3f} ms per frame (median of 3)")
+
+    # --- mrbles, frame M ------------------------------------------------
+    n_frames_m = 6
+    frames_m = [as_dataarray(mt, "M", seed) for seed in range(n_frames_m)]
+    data_m, n_true_m = frames_m[2], frame_m()[1]
+    with _Launches(by_path, "mrbles M"):
+        xm = _mrbles(mt, data_m, dev)
+    tags = np.asarray(xm.tag.values)
+    found, outliers = len(tags), int((tags == "outlier").sum())
+    _say(f"frame M: true {n_true_m}, found {found}, coded "
+         f"{found - outliers}, outliers {outliers}, roi {xm['roi'].shape}")
+    _check_case("M", xm, golden)
+    for where, decode_device in (("card", None), ("cpu", "cpu")):
+        _mrbles(mt, data_m, dev, decode_device)  # warm
+        ms = _time_ms(lambda: _mrbles(mt, data_m, dev, decode_device), 3)
+        _say(f"frame M warm mrbles(), decode on the {where}: {ms:.3f} ms per "
+             f"frame (median of 3); decode stages (s) "
+             f"{json.dumps(identify.last_decode_timings)}")
+    x_cpu_decode = _mrbles(mt, data_m, dev, "cpu")
+    if not np.array_equal(np.asarray(x_cpu_decode.tag.values), tags):
+        raise AssertionError("frame M: tags differ between the decode on the "
+                             "card and on the CPU")
+
+    # --- streams ----------------------------------------------------------
+    n_stream_a = 8
+    with _Launches(by_path, f"beads_stream {n_stream_a} x A"):
+        outs = list(mt.beads_stream([data_a] * n_stream_a, device=dev,
+                                    **FRAME_A_KW))
+    if len(outs) != n_stream_a:
+        raise AssertionError(f"beads_stream yielded {len(outs)} frames")
+    for k, out in enumerate(outs):
+        _assert_same_frame(f"beads_stream frame {k}", out, xa)
+    want = {k: n_stream_a * v for k, v in by_path["beads A"].items()}
+    if by_path[f"beads_stream {n_stream_a} x A"] != want:
+        raise AssertionError(f"beads_stream launches != {want}")
+    _say(f"beads_stream: {n_stream_a} frames equal the single-frame call, "
+         f"launches {n_stream_a} x the single frame's")
+
+    def stream_a():
+        return list(mt.beads_stream([data_a] * n_stream_a, device=dev,
+                                    **FRAME_A_KW))
+
+    ms_stream_a = _time_ms(stream_a, 3) / n_stream_a
+    _say(f"frame A: {ms_stream_a:.3f} ms per frame streamed (8 frames, "
+         f"depth 2, median of 3) vs {ms_a:.3f} ms serial")
+
+    # The single-frame calls the stream is held to; their launches are the
+    # stream's expected count and are not a path of their own.
+    serial_m: dict = {}
+    with _Launches(serial_m, f"{n_frames_m} single mrbles calls, seeds 0-5"):
+        singles_m = [_mrbles(mt, frame, dev) for frame in frames_m]
+    (per_frame_m,) = serial_m.values()
+    spectra, codes = mrbles_csvs()  # one pair of handles for every frame
+
+    def stream_m():
+        return list(mt.mrbles_stream(frames_m, spectra=spectra, codes=codes,
+                                     device=dev, **FRAME_M_KW))
+
+    with _Launches(by_path, f"mrbles_stream {n_frames_m} x M"):
+        outs_m = stream_m()
+    if len(outs_m) != n_frames_m:
+        raise AssertionError(f"mrbles_stream yielded {len(outs_m)} frames")
+    for k, (out, ref) in enumerate(zip(outs_m, singles_m)):
+        _assert_same_frame(f"mrbles_stream frame {k}", out, ref)
+    if by_path[f"mrbles_stream {n_frames_m} x M"] != per_frame_m:
+        raise AssertionError(f"mrbles_stream launches != {per_frame_m}")
+    coded = [int((np.asarray(o.tag.values) != "outlier").sum())
+             for o in outs_m]
+    _say(f"mrbles_stream: {n_frames_m} frames (seeds 0-5) equal the "
+         f"single-frame calls, tags included; coded per frame {coded}; "
+         "launches equal the single frames' sum")
+    ms_serial_m = _time_ms(
+        lambda: [_mrbles(mt, f, dev) for f in frames_m], 3) / n_frames_m
+    ms_stream_m = _time_ms(stream_m, 3) / n_frames_m
+    _say(f"frame M: {ms_stream_m:.3f} ms per frame streamed (6 frames, "
+         f"depth 2, median of 3) vs {ms_serial_m:.3f} ms serial")
+
+    for rec in records:
+        rec["launches_by_path"] = {path: counts[rec["name"]]
+                                   for path, counts in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        _say(f"{rec['name']}: {rec['launches_per_call']} launches per call, "
+             f"{rec['launches']} in the main paths "
+             f"{rec['launches_by_path']}")
+
+
+# The 24-code, 4-lanthanide, 5-channel panel of the decode-scale check.
+PANEL_CHANNELS = ["435", "474", "536", "620", "700"]
+PANEL_LNS = ["eu", "dy", "sm", "tm"]
+PANEL_SPECTRA = np.array([
+    [1.0, 0.2, 0.1, 0.05, 0.02],
+    [0.1, 1.0, 0.3, 0.0, 0.05],
+    [0.0, 0.1, 0.9, 0.4, 0.1],
+    [0.05, 0.0, 0.2, 0.9, 0.3],
+])
+PANEL_CODES = {f"code_{d}{s}{t}": (1.5 * d, 2.0 * s, 2.5 * t)
+               for d in range(4) for s in range(3) for t in range(2)}
+
+
+def decode_assay(pkg, n: int = 8192, side: int = 32, seed: int = 7):
+    """``n`` synthetic marks over the 24-code panel: (mark, 5 channels, 1,
+    side, side) float32 ROIs whose 8 x 8 centre holds the code's spectrum
+    (ratio noise 0.04), fg the centre, bg the two top rows. Returns the
+    Dataset of package ``pkg`` and the (spectra, codes) CSV file-likes."""
+    rng = np.random.default_rng(seed)
+    lo, hi = side // 2 - 4, side // 2 + 4
+    roi = np.zeros((n, len(PANEL_CHANNELS), 1, side, side), np.float32)
+    fg = np.zeros((n, 1, side, side), bool)
+    bg = np.zeros((n, 1, side, side), bool)
+    fg[:, :, lo:hi, lo:hi] = True
+    bg[:, :, 0:2, :] = True
+    code_list = np.asarray(list(PANEL_CODES.values()))
+    codes_arr = code_list[rng.integers(0, len(code_list), n)]
+    eu = rng.uniform(80, 120, n)
+    vols = eu[:, None] * np.concatenate(
+        [np.ones((n, 1)), codes_arr + rng.normal(0, 0.04, codes_arr.shape)],
+        axis=1)
+    roi[:, :, 0, lo:hi, lo:hi] = (vols @ PANEL_SPECTRA)[:, :, None, None]
+    ds = pkg.Dataset(
+        {"roi": (("mark", "channel", "time", "roi_y", "roi_x"), roi)},
+        coords={"channel": PANEL_CHANNELS,
+                "fg": (("mark", "time", "roi_y", "roi_x"), fg),
+                "bg": (("mark", "time", "roi_y", "roi_x"), bg)})
+    spectra = ["name," + ",".join(PANEL_CHANNELS)]
+    spectra += [n_ + "," + ",".join(str(v) for v in row)
+                for n_, row in zip(PANEL_LNS, PANEL_SPECTRA)]
+    codes = ["name," + ",".join(PANEL_LNS)]
+    codes += [f"{n_},1.0,{d},{s},{t}"
+              for n_, (d, s, t) in PANEL_CODES.items()]
+    return ds, io.StringIO("\n".join(spectra)), io.StringIO("\n".join(codes))
+
+
+def decode_phase(dev) -> None:
+    """``identify_mrbles`` alone at device scale: the card against the CPU."""
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.components import identify
+
+    ds, spectra, codes = decode_assay(mt)
+    n = ds.sizes["mark"]
+    out, timings, wall = {}, {}, {}
+    for name, device in (("cuda", dev), ("cpu", "cpu")):
+        identify.identify_mrbles(ds, spectra=spectra, codes=codes,
+                                 device=device)  # warm
+        t0 = time.perf_counter()
+        out[name] = identify.identify_mrbles(ds, spectra=spectra, codes=codes,
+                                             device=device)
+        wall[name] = time.perf_counter() - t0
+        timings[name] = dict(identify.last_decode_timings)
+    tags = {k: np.asarray(v.tag.values) for k, v in out.items()}
+    mismatches = int((tags["cuda"] != tags["cpu"]).sum())
+    outlier_frac = float((tags["cuda"] == "outlier").mean())
+    vol_err = float(np.abs(out["cuda"]["ln_vol"].values
+                           - out["cpu"]["ln_vol"].values).max())
+    _say(f"decode of {n} marks x {len(PANEL_CHANNELS)} channels x "
+         f"{ds.sizes['roi_y']}^2: "
+         f"{mismatches} tag mismatches cuda vs cpu, outlier fraction "
+         f"{outlier_frac:.4f}, {len(np.unique(tags['cuda']))} distinct tags, "
+         f"ln_vol max |diff| {vol_err:.3e}")
+    for name in ("cuda", "cpu"):
+        _say(f"decode on {name}: {wall[name]:.4f} s, "
+             f"{n / wall[name]:.1f} marks/s; stages (s) "
+             f"{json.dumps(timings[name])}")
+    if mismatches:
+        raise AssertionError(f"decode: {mismatches} of {n} tags differ "
+                             "between cuda and cpu")
+    if len(np.unique(tags["cuda"][tags["cuda"] != "outlier"])) != len(
+            PANEL_CODES):
+        raise AssertionError("decode: not every code of the panel decoded")
 
 
 def main(argv) -> int:
@@ -473,6 +784,7 @@ def main(argv) -> int:
         _say(json.dumps({"kernels": records}))
         return 0
     main_path(records, dev)
+    decode_phase(dev)
     _say(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 
 from magnify_tpu_torch.components import (  # noqa: F401
     find,
+    identify,
     postprocess,
     preprocess,
     stitch,

@@ -15,11 +15,21 @@ Marks come out channel-major and, within a channel, best score first — the
 JAX package's order. Only the dense detector exists here: ``"ransac"``
 and the interactive UI raise, and a lazy stack is read into memory whole
 (the out-of-core path is not ported yet; ROADMAP, queue 1).
+
+:meth:`BeadFinder.stream` runs the same three phases for a sequence of
+frames with consecutive frames overlapped: a producer thread does the host
+phase and a pinned, asynchronous upload up to ``depth`` frames ahead, the
+calling thread detects in input order, and one worker thread assembles
+masks and crops (and runs the pipeline's later components) behind it.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import contextlib
 import math
+import threading
 
 import numpy as np
 import scipy.spatial
@@ -31,6 +41,7 @@ from magnify_tpu_torch.core.lazy import alloc_output
 from magnify_tpu_torch.core.registry import components
 from magnify_tpu_torch.ops import detect as ops_detect
 from magnify_tpu_torch.ops import geom as ops_geom
+from magnify_tpu_torch.parallel.streaming import PinnedUploader
 
 __all__ = ["BeadFinder"]
 
@@ -173,6 +184,13 @@ class BeadFinder:
         self.device = torch.device(device)
 
     def __call__(self, assay):
+        image_np, planes = self._host_planes(assay)
+        beads = self.detect(planes)
+        return self._assemble(assay, image_np, beads)
+
+    def _host_planes(self, assay):
+        """Host phase of one frame: the image stack in memory and its uint8
+        search planes (S, H, W) at t = 0."""
         search_channels = self.search_channels or _channel_values(assay)
         search_idxs = [
             _channel_index(assay, c) if not isinstance(c, int) else c
@@ -180,13 +198,24 @@ class BeadFinder:
         ]
         image_np = np.ascontiguousarray(assay.image.to_numpy())
         planes = ops_detect.normalize_planes_u8(image_np[search_idxs, 0])
-        beads = self.detect(planes)
-        return self._assemble(assay, image_np, beads)
+        return image_np, planes
+
+    def _prepare_frame(self, assay, uploader):
+        """Producer-thread half of one streamed frame: materialize the
+        image, normalize the search planes on the host and start their
+        asynchronous upload. Returns (assay, image_np, planes_dev, event)."""
+        image_np, planes = self._host_planes(assay)
+        return (assay, image_np) + uploader.upload(planes)
 
     def detect(self, planes: np.ndarray) -> np.ndarray:
         """Dense detection on uint8 search planes (S, H, W): the (n, 3)
         int32 (row, col, radius) marks, channel-major, best first."""
-        planes_dev = torch.as_tensor(planes).to(self.device)
+        return self.detect_planes(torch.as_tensor(planes).to(self.device))
+
+    def detect_planes(self, planes_dev: torch.Tensor) -> np.ndarray:
+        """:meth:`detect` on planes that already lie on ``self.device``.
+        Launches on the calling thread's current stream and waits for the
+        marks."""
         blocks = []
         for plane in planes_dev:
             circles, _scores = ops_detect.detect_dense(
@@ -229,6 +258,118 @@ class BeadFinder:
         if n > 0:
             assay.cache(["roi", "fg", "bg"])
         return assay
+
+    def stream(self, inputs, *, reader, pre, post, depth: int = 2,
+               pull_batch: int = 4):
+        """Pipelined multi-frame bead pipeline (generator).
+
+        Yields one finished Dataset per input frame, each bit-identical to
+        running the single-frame pipeline on that frame alone, in input
+        order, with the per-frame stages overlapped across frames:
+
+        * the host pre-stages (``reader``, the ``pre`` components), the
+          uint8 normalization and a pinned asynchronous upload run up to
+          ``depth`` frames ahead on a producer thread;
+        * detection runs on the calling thread, one frame at a time in
+          input order (the hand kernels launch on the calling thread's
+          stream, and their launch counters are plain module integers);
+        * frame k's masks, ROI crops and ``post`` components run on one
+          worker thread (with a CUDA stream of its own on a card), while
+          the calling thread already detects frame k+1.
+
+        The detector waits for the device inside each frame (its survivor
+        compaction and every NMS round read a count back), so there is no
+        packed result to pull for several frames at once: ``pull_batch`` is
+        validated and has no effect yet. What overlaps is host work (numpy
+        releases the interpreter lock) with the calling thread's launches.
+
+        A producer failure is re-raised here after the frames before it;
+        abandoning the generator releases the producer and the worker.
+        """
+        depth, pull_batch = int(depth), int(pull_batch)
+        if depth < 1 or pull_batch < 1:
+            raise ValueError("stream_depth and stream_pull_batch must be "
+                             f">= 1 (got {depth}, {pull_batch})")
+        on_card = self.device.type == "cuda"
+        # One frame being filled, ``depth`` + 1 queued, one in detection.
+        uploader = PinnedUploader(self.device, slots=depth + 3)
+        worker_stream = torch.cuda.Stream(self.device) if on_card else None
+
+        queue: collections.deque = collections.deque()
+        cv = threading.Condition()
+        done = object()
+        failure: list = []
+        cancelled = threading.Event()
+
+        def produce():
+            try:
+                for data in inputs:
+                    for assay in reader(data=data):
+                        if cancelled.is_set():
+                            return
+                        for _name, comp in pre:
+                            assay = comp(assay)
+                        item = self._prepare_frame(assay, uploader)
+                        with cv:
+                            while len(queue) > depth:
+                                if cancelled.is_set():
+                                    return
+                                cv.wait()
+                            queue.append(item)
+                            cv.notify_all()
+            except BaseException as e:  # re-raised in the consumer below
+                failure.append(e)
+            finally:
+                with cv:
+                    queue.append(done)
+                    cv.notify_all()
+
+        def assemble(assay, image_np, beads_i):
+            side = (torch.cuda.stream(worker_stream) if on_card
+                    else contextlib.nullcontext())
+            with side:
+                out = self._assemble(assay, image_np, beads_i)
+                for _name, comp in post:
+                    out = comp(out)
+            return out
+
+        thread = threading.Thread(target=produce, daemon=True,
+                                  name="magnify-stream-producer")
+        thread.start()
+        # One worker keeps the yield order; the calling thread's steady
+        # state is detection only.
+        assembler = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="magnify-stream-assembly")
+        pending: collections.deque = collections.deque()
+        try:
+            while True:
+                with cv:
+                    while not queue:
+                        cv.wait()
+                    item = queue.popleft()
+                    cv.notify_all()
+                if item is done:
+                    break
+                assay, image_np, planes_dev, event = item
+                beads_i = self.detect_planes(
+                    uploader.receive(planes_dev, event))
+                pending.append(
+                    assembler.submit(assemble, assay, image_np, beads_i))
+                while len(pending) > 1:
+                    yield pending.popleft().result()
+            while pending:
+                yield pending.popleft().result()
+            thread.join()
+            if failure:
+                raise failure[0]
+        finally:
+            # The consumer may abandon the generator mid-stream: release
+            # the producer so it does not block forever holding buffers.
+            cancelled.set()
+            with cv:
+                queue.clear()
+                cv.notify_all()
+            assembler.shutdown(wait=False, cancel_futures=True)
 
     @components.register("find_beads")
     def make(

@@ -1,15 +1,18 @@
-"""Write tests/data/torch_port_golden.npz: the JAX package's beads results
-on the port's two smoke frames, for checking the port where JAX is absent.
+"""Write tests/data/torch_port_golden.npz: the JAX package's results on the
+port's smoke frames, for checking the port where JAX is absent.
 
     JAX_PLATFORMS=cpu python scripts/make_torch_port_golden.py
 
 Runs ``magnify_tpu.beads(detector="dense")`` with int8 score maps on the CPU
 for frame A (1024^2, 110 beads) and frame B (2 channels, 2 x 2 tiles of
-1024^2, overlap 102) as ``chip_smoke.py`` builds them, and stores for each
-the bead rows (y, x) in mark order and sha256 digests of fg, bg and roi.
+1024^2, overlap 102) and ``magnify_tpu.mrbles`` the same way for frame M
+(4 channels x 1024^2, 108 beads of 4 codes), as ``chip_smoke.py`` builds
+them, and stores for each the bead rows (y, x) in mark order and sha256
+digests of fg, bg and roi; for frame M also the decoded tags and ``ln_vol``.
 The score-quantization mode is read once when magnify_tpu is imported, so
 this script sets it (and the detector) before that import, in its own
-process.
+process. Keys that the file already holds must come out unchanged: the
+script refuses to overwrite a file whose frames A or B would change.
 """
 
 from __future__ import annotations
@@ -34,18 +37,32 @@ import magnify_tpu as mg  # noqa: E402
 
 def main() -> None:
     out = {}
-    cases = (("A", chip_smoke.FRAME_A_KW), ("B", chip_smoke.FRAME_B_KW))
+    cases = (("A", chip_smoke.FRAME_A_KW), ("B", chip_smoke.FRAME_B_KW),
+             ("M", chip_smoke.FRAME_M_KW))
     for case, kw in cases:
-        xp = mg.beads(chip_smoke.as_dataarray(mg, case), detector="dense",
-                      **kw)
-        summary = chip_smoke.summarize(xp)
-        out[f"{case}_rows"] = summary["rows"]
-        for key in ("fg", "bg", "roi"):
-            out[f"{case}_{key}"] = np.array(summary[key])
-        print(f"frame {case}: {len(summary['rows'])} marks, "
+        data = chip_smoke.as_dataarray(mg, case)
+        if case == "M":
+            spectra, codes = chip_smoke.mrbles_csvs()
+            xp = mg.mrbles(data, spectra=spectra, codes=codes,
+                           detector="dense", **kw)
+        else:
+            xp = mg.beads(data, detector="dense", **kw)
+        for key, val in chip_smoke.summarize(xp).items():
+            out[f"{case}_{key}"] = np.asarray(val)
+        print(f"frame {case}: {len(out[f'{case}_rows'])} marks, "
               f"roi {xp['roi'].shape}")
+    tags = out["M_tag"]
+    print(f"frame M: true {chip_smoke.frame_m()[1]}, found {len(tags)}, "
+          f"coded {int((tags != 'outlier').sum())}, outliers "
+          f"{int((tags == 'outlier').sum())}")
     path = ROOT / "tests" / "data" / "torch_port_golden.npz"
     path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        old = np.load(path)
+        for key in old.files:
+            if key[0] in "AB" and not np.array_equal(old[key], out[key]):
+                raise SystemExit(f"{key} would change; the golden file was "
+                                 "not written")
     np.savez_compressed(path, **out)
     print(f"wrote {path.relative_to(ROOT)}")
 

@@ -12,9 +12,12 @@ frames A (1024^2) and B (1844^2 stitched plane, 1892^2 padded features):
    durations over 20 calls, divided by 20), kernel by kernel, beside the
    host wall time per call of the same loop, and for hysteresis at every
    tile height of 8, 16, 32, 64 and 128 rows;
-2. for 3 warm ``beads()`` frames of A and then of B: the wall time, the
-   device busy time (the union of all kernel intervals), the idle share,
-   and the ten kernels with the most device time.
+2. for 3 warm ``beads()`` frames of A and then of B, 3 warm ``mrbles()``
+   frames of M, and 2 warm runs each of ``beads_stream`` over 8 frames A and
+   ``mrbles_stream`` over 6 frames M (seeds 0-5): the wall time per frame,
+   the device busy time (the union of all kernel intervals, whatever thread
+   or stream launched them), the idle share, and the ten kernels with the
+   most device time.
 
 It prints the card's name and power limit first. It exits 2 without a
 CUDA device.
@@ -82,18 +85,20 @@ def kernel_times(label, fn, prefixes, reps=20) -> None:
           f"{wall_ms / reps * 1e3:.2f} us per call", flush=True)
 
 
-def frame_profile(label, fn, reps=3) -> None:
+def frame_profile(label, fn, reps=3, frames=1) -> None:
+    """``fn`` handles ``frames`` frames per call."""
     events, wall_ms = _profile(fn, reps)
+    n = reps * frames
     busy_ms = _busy_us(events) / 1e3
     top = collections.Counter()
     for e in events:
         top[e.name[:60]] += e.time_range.elapsed_us()
-    print(f"{label}: wall {wall_ms / reps:.3f} ms per frame, device busy "
-          f"{busy_ms / reps:.3f} ms per frame, idle share "
-          f"{1 - busy_ms / wall_ms:.4f}, {len(events) // reps} kernels per "
+    print(f"{label}: wall {wall_ms / n:.3f} ms per frame, device busy "
+          f"{busy_ms / n:.3f} ms per frame, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}, {len(events) // n} kernels per "
           "frame", flush=True)
     for name, us in top.most_common(10):
-        print(f"    {us / reps / 1e3:8.4f} ms  {name}", flush=True)
+        print(f"    {us / n / 1e3:8.4f} ms  {name}", flush=True)
 
 
 def main() -> int:
@@ -128,6 +133,20 @@ def main() -> int:
         data = cs.as_dataarray(mt, case)
         frame_profile(f"beads frame {case}",
                       lambda: mt.beads(data, device=dev, **kw))
+    data_a = cs.as_dataarray(mt, "A")
+    frames_m = [cs.as_dataarray(mt, "M", seed) for seed in range(6)]
+    frame_profile("mrbles frame M",
+                  lambda: cs._mrbles(mt, frames_m[2], dev))
+    frame_profile(
+        "beads_stream 8 x frame A",
+        lambda: list(mt.beads_stream([data_a] * 8, device=dev,
+                                     **cs.FRAME_A_KW)), reps=2, frames=8)
+    spectra, codes = cs.mrbles_csvs()
+    frame_profile(
+        "mrbles_stream 6 x frame M",
+        lambda: list(mt.mrbles_stream(frames_m, spectra=spectra, codes=codes,
+                                      device=dev, **cs.FRAME_M_KW)),
+        reps=2, frames=6)
     return 0
 
 

@@ -1,19 +1,28 @@
-"""The port's CUDA kernels and its ``beads`` on the card (marker ``cuda``).
+"""The port's CUDA kernels and its entry points on the card (marker
+``cuda``).
 
 Each kernel against its plain twin, bit for bit, at small shapes that
-stress the tiling (tile borders, ragged edges, chains across many tiles),
-and ``beads(device="cuda")`` against ``beads(device="cpu")`` on the
-end-to-end fixtures of test_torch_slice. Without a CUDA device every test
-skips. On a machine with one (and no JAX), run:
+stress the tiling (tile borders, ragged edges, chains across many tiles);
+``beads`` and ``mrbles`` with ``device="cuda"`` against ``device="cpu"`` on
+the end-to-end fixtures of test_torch_slice; the decode's device stages
+(masked reductions, lattice fit, EM, ``identify_mrbles``) against the CPU;
+and the frame streams against the single-frame calls. Without a CUDA device
+every test skips. On a machine with one (and no JAX), run:
 
     MAGNIFY_TPU_TEST_BACKEND=gpu python -m pytest tests/test_torch_cuda.py -m cuda
 """
+
+import io
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from magnify_tpu_torch.components import identify as tid
 from magnify_tpu_torch.ops import hysteresis as thyst
+from magnify_tpu_torch.ops import reduce as treduce
 from magnify_tpu_torch.ops import score as tscore
 
 pytestmark = pytest.mark.cuda
@@ -127,3 +136,160 @@ def test_beads_cuda_matches_cpu(cuda, case):
     assert sorted(got) == sorted(want)
     for key, val in want.items():
         np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+def test_mrbles_cuda_matches_cpu(cuda):
+    import magnify_tpu_torch as mt
+    from test_torch_slice import flatten, run_case
+
+    got = flatten(run_case(mt, "mrbles", device="cuda"), "mrbles")
+    want = flatten(run_case(mt, "mrbles", device="cpu"), "mrbles")
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        if key in ("mrbles/ln_vol", "mrbles/ln_ratio"):
+            # f32 sums of the fg pixels in another order on the card.
+            np.testing.assert_allclose(got[key], val, rtol=1e-4, atol=1e-3,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+def test_reductions_on_the_card_match_the_twins(cuda):
+    rng = np.random.default_rng(0)
+    roi = rng.normal(200, 40, (50, 3, 16, 16)).astype(np.float32)
+    fg = rng.random((50, 16, 16)) < 0.3
+    bg = rng.random((50, 16, 16)) < 0.4
+    fg[7], bg[7] = False, False
+    got = treduce.fg_mean_bg_median(roi, fg, bg, device=cuda)
+    want = treduce.fg_mean_bg_median(roi, fg, bg, device="cpu")
+    assert np.isnan(got[7]).all()
+    np.testing.assert_allclose(
+        got, want, rtol=0, atol=treduce.MEAN_RTOL * float(np.abs(roi).max()),
+        equal_nan=True)
+    values, mask = roi[:, 0], bg
+    np.testing.assert_array_equal(
+        treduce.masked_median(values, mask, device=cuda),
+        treduce.masked_median(values, mask, device="cpu"))
+    np.testing.assert_allclose(
+        treduce.masked_mean(values, mask, device=cuda),
+        treduce.masked_mean(values, mask, device="cpu"),
+        rtol=treduce.MEAN_RTOL, equal_nan=True)
+
+
+@pytest.mark.parametrize("seed,n,levels", [(0, 200, 3), (1, 2000, 4),
+                                           (2, 7782, 4), (3, 91, 2)])
+def test_lattice_fit_on_the_card_equals_the_cpu(cuda, seed, n, levels):
+    """Every step is an IEEE f32 or f64 operation in a fixed order, so the
+    card gives the CPU's bits."""
+    rng = np.random.default_rng(seed)
+    codes = np.arange(levels) * rng.uniform(0.8, 2.5)
+    counts = rng.integers(2, 8, levels).astype(np.float64)
+    pts = np.sort(rng.choice(codes, n, p=counts / counts.sum())
+                  * rng.uniform(0.8, 1.2) + rng.normal(0, 0.05, n))
+    assert (tid._fit_affine_1d(pts, codes, counts, device=cuda)
+            == tid._fit_affine_1d(pts, codes, counts, device="cpu"))
+
+
+def _decode_assay(n, side):
+    sys.path.insert(0, os.path.abspath(
+        os.path.join(os.path.dirname(__file__), os.pardir)))
+    import chip_smoke
+    import magnify_tpu_torch as mt
+
+    return chip_smoke.decode_assay(mt, n=n, side=side, seed=3)
+
+
+def test_identify_mrbles_cuda_matches_cpu(cuda):
+    ds, spectra, codes = _decode_assay(480, 12)
+    got = tid.identify_mrbles(ds, spectra=spectra, codes=codes, device=cuda)
+    want = tid.identify_mrbles(ds, spectra=spectra, codes=codes, device="cpu")
+    np.testing.assert_array_equal(got.tag.values, want.tag.values)
+    assert len(np.unique(got.tag.values)) >= 24
+    np.testing.assert_allclose(got["ln_vol"].values, want["ln_vol"].values,
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_gmm_em_on_the_card_matches_the_cpu(cuda):
+    rng = np.random.default_rng(0)
+    centers = rng.uniform(0, 3, (4, 2))
+    X = centers[rng.integers(0, 4, 180)] + rng.normal(0, 0.25, (180, 2))
+    covs = np.tile(np.eye(2) * 0.0625, (4, 1, 1))
+    props = np.append(np.full(4, 46.0), 1e-10)
+    props /= props.sum()
+    args = [torch.as_tensor(np.asarray(a, np.float32))
+            for a in (X, centers, covs, props)]
+    span = float(np.log(X.max(0) - X.min(0)).sum())
+    want = tid._gmm_em(*args, span)
+    got = tid._gmm_em(*(a.to(cuda) for a in args), span)
+    assert bool(got[1]) == bool(want[1]) and bool(got[2]) == bool(want[2])
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(), rtol=0,
+                               atol=1e-5)
+    covs[:] = 0
+    bad = tid._gmm_em(args[0].to(cuda), args[1].to(cuda),
+                      torch.zeros((4, 2, 2), device=cuda), args[3].to(cuda),
+                      span)
+    assert not bool(bad[1]) and not bool(bad[2])
+
+
+def _stream_frames():
+    import magnify_tpu_torch as mt
+    from test_torch_slice import case_inputs
+
+    img, dims, coords, kw = case_inputs("two_channel")
+    frames = []
+    for shift in (0, 3, 7):
+        frames.append(mt.DataArray(np.roll(img, shift, axis=-1), dims=dims,
+                                   coords=coords))
+    return frames, kw
+
+
+def test_beads_stream_cuda_matches_single(cuda):
+    import magnify_tpu_torch as mt
+    from test_torch_slice import flatten
+
+    frames, kw = _stream_frames()
+    before = thyst.launches, tscore.launches
+    outs = list(mt.beads_stream(frames, device="cuda", stream_depth=2, **kw))
+    streamed = thyst.launches - before[0], tscore.launches - before[1]
+    before = thyst.launches, tscore.launches
+    refs = [mt.beads(f, device="cuda", **kw) for f in frames]
+    serial = thyst.launches - before[0], tscore.launches - before[1]
+    assert streamed == serial and min(streamed) > 0
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        got, want = flatten(out, "s"), flatten(ref, "s")
+        assert sorted(got) == sorted(want)
+        for key, val in want.items():
+            np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+def test_mrbles_stream_cuda_matches_single(cuda):
+    import magnify_tpu_torch as mt
+    from test_torch_slice import (MRBLES_CODES, MRBLES_SPECTRA, flatten,
+                                  mrbles_inputs)
+
+    img, dims, coords, kw = mrbles_inputs()
+    frames = [mt.DataArray(np.roll(img, s, axis=-1), dims=dims, coords=coords)
+              for s in (0, 5, 11)]
+    spectra, codes = io.StringIO(MRBLES_SPECTRA), io.StringIO(MRBLES_CODES)
+    outs = list(mt.mrbles_stream(frames, spectra=spectra, codes=codes,
+                                 device="cuda", **kw))
+    for frame, out in zip(frames, outs):
+        ref = mt.mrbles(frame, spectra=spectra, codes=codes, device="cuda",
+                        **kw)
+        got, want = flatten(out, "m"), flatten(ref, "m")
+        assert sorted(got) == sorted(want)
+        for key, val in want.items():
+            np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+def test_device_prefetcher_on_the_card(cuda):
+    from magnify_tpu_torch.parallel import streaming
+
+    blocks = {k: np.full((64, 64), k, np.uint8) for k in range(7)}
+    got = list(streaming.DevicePrefetcher(range(7), blocks.__getitem__,
+                                          depth=2, device=cuda))
+    assert [k for k, _ in got] == list(range(7))
+    for k, t in got:
+        assert t.device.type == "cuda"
+        assert torch.equal(t.cpu(), torch.from_numpy(blocks[k]))

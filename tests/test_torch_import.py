@@ -1,20 +1,30 @@
 """The PyTorch port stands apart from JAX and shares the JAX package's tables.
 
-``import magnify_tpu_torch`` must load neither jax nor magnify_tpu, and the
-constant state both packages use (Bresenham rings, the disk-extent LUT, the
-float and int8 ring kernels and their scales) must be array-equal: the port
-builds it with copied numpy code instead of converting it.
+``import magnify_tpu_torch`` must load none of jax, magnify_tpu and pandas,
+and the constant state both packages use must be equal: the Bresenham rings,
+the disk-extent LUT, the float and int8 ring kernels and their scales (built
+with copied numpy code instead of converted), and for the decode the parsed
+spectra/codes/pinlist tables (``csv`` module against pandas on the same
+text, the reference-first reordering included), the lattice fit's search
+grids and its prefix sums (against jitted JAX: eager ``jnp.linspace`` and
+eager arithmetic give other last bits than the jitted program).
 """
 
+import functools
+import io
 import os
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
 import magnify_tpu_torch as mt
+from magnify_tpu_torch.components import identify as tid
 from magnify_tpu import utils as jutils
 from magnify_tpu.ops import geom as jgeom
 from magnify_tpu.ops import score as jscore
@@ -27,10 +37,17 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
 
 def test_import_loads_neither_jax_nor_magnify_tpu():
-    code = ("import sys, magnify_tpu_torch\n"
+    code = ("import sys, magnify_tpu_torch, chip_smoke\n"
+            "import magnify_tpu_torch.components.identify\n"
+            "import magnify_tpu_torch.ops.reduce\n"
+            "import magnify_tpu_torch.parallel.streaming\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu'))\n"
-            "assert not bad, bad\n")
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu',\n"
+            "                                    'pandas'))\n"
+            "assert not bad, bad\n"
+            "for name in ('mrbles', 'mrbles_pipe', 'beads_stream',\n"
+            "             'mrbles_stream', 'parallel'):\n"
+            "    assert name in magnify_tpu_torch.__all__, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -96,3 +113,114 @@ def test_unported_options_raise():
         mt.beads("some/path/*.tif", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.beads(img, flatfield="flat.tif", device="cpu")
+
+
+# ----------------------------------------------------------------------
+# What the decode shares
+# ----------------------------------------------------------------------
+
+SPECTRA_TEXT = ("name,435,474,536,620\n"
+                "dy,0.1,1.0,0.3,0\n"
+                "eu,1.0,0.2,0.1,0.9\n"
+                "\n"
+                "sm,0.0,0.1,0.9,0.1\n")
+CODES_TEXT = ("name,eu,sm,dy\n"
+              "code_a,1,0,0\n"
+              "code_b,1.0,0.0,1.5\n"
+              "7,1.0,2,0\n")
+PINLIST_TEXT = ("Indices,MutantID\n"
+                '"(1, 1)",alpha\n'
+                '"(2, 1)",BLANK\n'
+                '"(2, 2)",\n')
+
+
+@pytest.mark.parametrize("text", [SPECTRA_TEXT, CODES_TEXT, PINLIST_TEXT])
+def test_csv_tables_equal_pandas(text):
+    """Column order from the header, numeric columns as float64 values,
+    text columns as str with blanks missing, blank lines skipped; a
+    file-like is rewound, so a second read gives the same table."""
+    handle = io.StringIO(text)
+    want = pd.read_csv(io.StringIO(text))
+    for _ in range(2):
+        got = tid._read_csv(handle)
+        assert list(got) == list(want.columns)
+        for col in want.columns:
+            w = want[col]
+            if pd.api.types.is_numeric_dtype(w):
+                assert got[col].dtype == np.float64
+                np.testing.assert_array_equal(
+                    got[col], w.to_numpy(dtype=np.float64))
+            else:
+                assert got[col].dtype == object
+                assert [None if v is None else str(v) for v in got[col]] == [
+                    None if pd.isna(v) else str(v) for v in w]
+
+
+def test_csv_reads_paths(tmp_path):
+    path = tmp_path / "spectra.csv"
+    path.write_text(SPECTRA_TEXT)
+    got, want = tid._read_csv(str(path)), tid._read_csv(io.StringIO(SPECTRA_TEXT))
+    assert list(got) == list(want)
+    for col in want:
+        np.testing.assert_array_equal(got[col], want[col])
+    with pytest.raises(ValueError, match="empty"):
+        tid._read_csv(io.StringIO(""))
+
+
+@pytest.mark.parametrize("reference", ["eu", "dy", "sm"])
+def test_reference_first_reordering_equals_pandas_reindex(reference):
+    """The spectra matrix and lanthanide order after the reference-first
+    reordering, against the JAX package's pandas recipe."""
+    channels = ["435", "620"]
+    df = pd.read_csv(io.StringIO(SPECTRA_TEXT))
+    ref_idx = df[df["name"] == reference].index[0]
+    df = df.reindex([ref_idx] + [i for i in range(len(df)) if i != ref_idx])
+    table = tid._read_csv(io.StringIO(SPECTRA_TEXT))
+    names = tid._name_column(table, "spectra")
+    order = tid._reference_first(names, reference)
+    assert [str(names[i]) for i in order] == df["name"].to_list()
+    got = np.stack([table[c][order] for c in channels], axis=1)
+    np.testing.assert_array_equal(got, df[channels].to_numpy())
+    with pytest.raises(ValueError, match="Reference lanthanide 'tb'"):
+        tid._reference_first(names, "tb")
+
+
+def test_codes_names_and_sets_equal_pandas():
+    df = pd.read_csv(io.StringIO(CODES_TEXT))
+    table = tid._read_csv(io.StringIO(CODES_TEXT))
+    names = tid._name_column(table, "codes")
+    assert names.dtype == object
+    assert list(names) == [str(v) for v in df["name"]] == [
+        "code_a", "code_b", "7"]
+    assert set(table) - {"name"} == set(df.columns) - {"name"}
+    assert np.append(names, "outlier").dtype == object
+
+
+@functools.partial(jax.jit, static_argnames=("n_grid",))
+def _jax_grids(lo, hi, codes, n_grid=100):
+    """The grid expressions of the JAX package's ``search``, jitted."""
+    code_span = jnp.maximum(codes[-1] - codes[0], 1e-30)
+    scale = (hi - lo) / code_span
+    return (jnp.linspace(0.75 * scale, 1.25 * scale, n_grid),
+            jnp.linspace(lo, 0.25 * hi + 0.75 * lo, n_grid))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_search_grids_match_jitted_linspace(seed):
+    rng = np.random.default_rng(seed)
+    codes = (np.arange(3) * rng.uniform(0.8, 2.5)).astype(np.float32)
+    lo, hi = np.sort(rng.normal(1, 2, 2)).astype(np.float32)
+    want_a, want_p = _jax_grids(lo, hi, jnp.asarray(codes))
+    got_a, got_p = tid._search_grids(
+        lo, hi, np.maximum(codes[-1] - codes[0], np.float32(1e-30)), 100)
+    assert got_a.dtype == got_p.dtype == np.float32
+    np.testing.assert_array_equal(got_a, np.asarray(want_a))
+    np.testing.assert_array_equal(got_p, np.asarray(want_p))
+
+
+def test_prefix_sums_match_jitted_cumsum():
+    rng = np.random.default_rng(0)
+    for n in (1, 7, 16, 17, 200, 513, 4100):
+        x = np.sort(rng.normal(1, 1, n)).astype(np.float32)
+        np.testing.assert_array_equal(
+            tid._prefix_sums(x), np.asarray(jax.jit(jnp.cumsum)(x)))

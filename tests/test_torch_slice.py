@@ -1,4 +1,5 @@
-"""The port's ``beads`` end to end against the JAX package's, exactly.
+"""The port's ``beads`` and ``mrbles`` end to end against the JAX package's,
+exactly.
 
 ``magnify_tpu_torch.beads(..., device="cpu")`` runs against
 ``magnify_tpu.beads(..., detector="dense")`` with int8 score maps on three
@@ -6,7 +7,10 @@ fixtures: a 256^2 single-channel frame (with an array flat field), a
 2-channel frame with shared and disjoint beads (the cross-channel dedupe),
 and a 2 x 2-tile stack with overlap (stitch, with a darkfield). Every output
 variable (``roi``, ``fg``, ``bg``, ``x``, ``y``, ``valid``, channel coords)
-must have the same dims and identical values.
+must have the same dims and identical values. ``mrbles`` runs the same way
+on a two-channel 300^2 frame with five beads of two codes: every variable
+and coordinate equal, the decoded ``tag`` (an object array of ``str`` in
+both packages) and the f64 ``ln_vol``/``ln_ratio`` included.
 
 The reference runs in ONE subprocess per session (this file run as a
 script): the JAX package reads its score-quantization mode once at import,
@@ -73,8 +77,37 @@ def case_inputs(case):
 
 CASES = ("single", "two_channel", "tiled")
 
+MRBLES_SPECTRA = "name,c1,c2\neu,1.0,0.1\ndy,0.1,1.0\n"
+MRBLES_CODES = "name,eu,dy\ncode_a,1.0,0.0\ncode_b,1.0,1.0\n"
+
+
+def mrbles_inputs():
+    """The two-channel decode frame: five beads, dy/eu ratio 0 or 1, drawn
+    as uint16 disks of radius 10 under Gaussian background noise."""
+    rng = np.random.default_rng(0)
+    spectra_m = np.array([[1.0, 0.1], [0.1, 1.0]])
+    chans = np.zeros((2, 300, 300), np.float32)
+    for k, dy in enumerate([0.0, 1.0, 0.0, 1.0, 0.0]):
+        inten = np.array([100.0, 100.0 * dy]) @ spectra_m
+        for ci in range(2):
+            disk = np.zeros((300, 300), np.uint16)
+            _paint(disk, [(60 + 50 * k, 60 + 40 * k)], [10],
+                   float(inten[ci]) + 1)
+            chans[ci] += disk
+    chans += rng.normal(8.0, 1.5, chans.shape).astype(np.float32)
+    return (np.maximum(chans, 0), ("channel", "y", "x"),
+            {"channel": ["c1", "c2"]},
+            dict(KW, overlap=0, search_channel="c1"))
+
 
 def run_case(pkg, case, **extra):
+    if case == "mrbles":
+        import io
+
+        img, dims, coords, kw = mrbles_inputs()
+        data = pkg.DataArray(img, dims=dims, coords=coords)
+        return pkg.mrbles(data, spectra=io.StringIO(MRBLES_SPECTRA),
+                          codes=io.StringIO(MRBLES_CODES), **kw, **extra)
     img, dims, coords, kw = case_inputs(case)
     data = pkg.DataArray(img, dims=dims, coords=coords)
     return pkg.beads(data, **kw, **extra)
@@ -82,10 +115,16 @@ def run_case(pkg, case, **extra):
 
 def flatten(xp, case):
     """Every variable of a result as {f"{case}/{name}": values} plus its
-    dims under f"{case}/{name}/dims"."""
+    dims under f"{case}/{name}/dims" and its dtype under
+    f"{case}/{name}/dtype" (object arrays of ``str`` are stored as
+    unicode, an ``.npz`` holds no objects)."""
     out = {}
     for name in sorted(xp.variables):
-        out[f"{case}/{name}"] = np.asarray(xp[name].values)
+        values = np.asarray(xp[name].values)
+        out[f"{case}/{name}/dtype"] = np.array(values.dtype.str)
+        if values.dtype == object:
+            values = values.astype(str)
+        out[f"{case}/{name}"] = values
         out[f"{case}/{name}/dims"] = np.array(",".join(xp[name].dims))
     return out
 
@@ -119,6 +158,22 @@ def test_beads_matches_jax_dense(reference, case):
         np.testing.assert_array_equal(got[key], val, err_msg=key)
 
 
+def test_mrbles_matches_jax_dense(reference):
+    import magnify_tpu_torch as mt
+
+    got = flatten(run_case(mt, "mrbles", device="cpu"), "mrbles")
+    want = {k: v for k, v in reference.items() if k.startswith("mrbles/")}
+    assert sorted(got) == sorted(want)
+    assert got["mrbles/x"].shape[0] >= 5
+    assert {"code_a", "code_b"} <= set(got["mrbles/tag"].tolist())
+    assert str(got["mrbles/tag/dtype"]) == "|O"
+    for var in ("tag", "ln", "ln_vol", "ln_ratio"):
+        assert f"mrbles/{var}" in got
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
 if __name__ == "__main__":
     # The reference run: the JAX package, dense detector, int8 maps.
     assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
@@ -127,6 +182,6 @@ if __name__ == "__main__":
     import magnify_tpu as mg
 
     result = {}
-    for name in CASES:
+    for name in CASES + ("mrbles",):
         result.update(flatten(run_case(mg, name, detector="dense"), name))
     np.savez(sys.argv[1], **result)
