@@ -14,12 +14,17 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    frame B's stitched plane (1844^2), on random masks at 2048^2 and 4096^2,
    with strong pixels outside the weak mask, and on a serpentine chain
    across many small tiles; the int8 ring correlation on the padded
-   features of frames A and B (8 x 1072^2, 8 x 1892^2; radii 8-12). It
-   times each kernel (CUDA events), its plain twin and, for the ring
-   correlation, the cuDNN ``conv2d`` that computes the same function
-   (``library_ms``, a yardstick the port never calls), and computes each
-   kernel's bound from the bytes it must move and the operations it must
-   do;
+   features of frames A and B (8 x 1072^2, 8 x 1892^2; radii 8-12).
+   Batched: hysteresis on the Canny masks of the chamber crops of frame C8
+   (64 x 72^2) and frame C (1,568 x 72^2), on random (N, H, W) masks with
+   W in {17, 72, 130} and on a batch whose planes would join if the kernel
+   ran on from one plane into the next; the ring correlation on the padded
+   int8 features of the same crops (64 x 8 x 136^2 at radii 8-16, 1,568 x 8
+   x 132^2 at radii 4-15). It times each kernel (CUDA events), its plain
+   twin and, for the ring correlation, the cuDNN ``conv2d`` that computes
+   the same function (``library_ms``, a yardstick the port never calls),
+   and computes each kernel's bound from the bytes it must move and the
+   operations it must do;
 3. main paths, each driven with the kernels' launch counts set to 0 just
    before and read just after; every path must have launched both kernels:
 
@@ -38,6 +43,18 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
      that frame (rows, digests, tags), the launch counts must be frames x
      the per-frame count, and ms per frame streamed is printed next to ms
      per frame serial;
+   * ``microfluidic_chip`` on frame C8 (the JAX package's chip bench
+     workload: 8 x 8 chambers on 900^2, diameters 16-32, pitch 100) and on
+     its 2-channel, 2-timestep variant with one empty channel: 64/64
+     buttons, rows, fg/bg/roi digests and tags equal to the golden file, and
+     for C8 ``device="cuda"`` equal to ``device="cpu"`` row for row;
+   * ``microfluidic_chip`` on frame C: ``chip_type="pc"``, 56 x 28 = 1,568
+     chambers on a 7,187 x 6,755 uint16 image, every other parameter at its
+     default, 4% of the chambers blank through a pinlist, one searched and
+     one copied timestep: every non-blank button within 1 px of where it
+     was drawn, tags as the pinlist says; prints found / expected, the warm
+     wall time, ``last_chip_timings`` and the peak of allocated device
+     memory;
 4. decode at device scale: ``identify_mrbles`` alone on 8,192 marks x 5
    channels x 32^2 ROIs over the 24-code panel; tags on ``cuda`` must equal
    tags on ``cpu``; prints the stage times on both;
@@ -45,20 +62,23 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    all main paths, ``launches_by_path`` and ``launches_per_call``,
    ``ms``/``plain_ms``/``bound_ms``/``bound_share``/``library_ms`` at frame
    A's shapes and the same keys with ``_frame_b`` at frame B's,
-   ``bound_by``, ``max_abs_err``) and, last, one JSON line
+   ``bound_by``, ``max_abs_err``; the batched entries have the same keys
+   with ``_rois_c8`` and ``_rois_c``) and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 at once. ``--kernels-only`` stops after
 phase 2.
 
-The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`) need
+The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`,
+:func:`frame_c8`, :func:`frame_c`) need
 numpy and the port's copy of the library rasterizer only, so the golden-file
 script imports them from here.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import io
 import json
@@ -194,8 +214,100 @@ def mrbles_csvs():
     return io.StringIO("\n".join(spectra)), io.StringIO("\n".join(codes))
 
 
+# Frame C8: the JAX package's chip bench workload, and a 2-channel,
+# 2-timestep variant (C8V) whose first channel is empty.
+C8_GRID = (8, 8)
+FRAME_C8_KW = dict(shape=C8_GRID, min_button_diameter=16,
+                   max_button_diameter=32, overlap=0, row_dist=100,
+                   col_dist=100)
+
+
+def frame_c8() -> np.ndarray:
+    """8 x 8 buttons of radius 10 at pitch 100 on a black 900^2 uint16
+    image."""
+    img = np.zeros(((C8_GRID[0] + 1) * 100, (C8_GRID[1] + 1) * 100),
+                   np.uint16)
+    pts = filled_circle_points(10)
+    for i in range(C8_GRID[0]):
+        for j in range(C8_GRID[1]):
+            img[pts[:, 0] + (i + 1) * 100, pts[:, 1] + (j + 1) * 100] = 1000
+    return img
+
+
+def frame_c8v(seed: int = 3) -> np.ndarray:
+    """(channel, time, y, x): channel 0 is empty (zeros), channel 1 holds
+    frame C8 on Gaussian noise at t = 0 and the same buttons moved by
+    (3, 2) pixels at t = 1 (a copied timestep keeps t = 0's positions)."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((2, 2) + frame_c8().shape, np.uint16)
+    out[1] = rng.normal(100, 4, out[1].shape).astype(np.uint16)
+    buttons = frame_c8() > 0
+    out[1, 0][buttons] = 1000
+    out[1, 1][np.roll(buttons, (3, 2), axis=(0, 1))] = 1000
+    return out
+
+
+# Frame C: the README's deployment, a "pc" chip at full size.
+C_GRID = (56, 28)
+C_ROW_DIST, C_COL_DIST = 406 / 3.22, 750 / 3.22
+C_BLANK_EVERY = 25  # every 25th chamber (4%) is blank
+FRAME_C_KW = dict(chip_type="pc", overlap=0)
+
+
+def _c_blank(i: int, j: int) -> bool:
+    return (i * C_GRID[1] + j) % C_BLANK_EVERY == 7
+
+
+@functools.lru_cache(maxsize=1)
+def frame_c(seed: int = 4):
+    """The full-size chip frame: a (time=2, y, x) uint16 stack, 56 x 28
+    chambers at the "pc" pitches (126.09 x 232.92 px), buttons of radius
+    5-14 (of the default diameters 8-30) and brightness 5,000-9,500 over a
+    dim noisy background (100 +- 5, below one uint8 level of the normalized
+    plane, as the dark field of a fluorescence image is), none in the blank
+    chambers. The second
+    timestep repeats the first. Returns (stack, centers (56, 28, 2) int of
+    the drawn (y, x), blank (56, 28) bool)."""
+    rng = np.random.default_rng(seed)
+    rows, cols = C_GRID
+    h = round((rows + 1) * C_ROW_DIST)
+    w = round((cols + 1) * C_COL_DIST)
+    img = rng.normal(100, 5, (h, w)).astype(np.float32).astype(np.uint16)
+    centers = np.zeros((rows, cols, 2), np.int64)
+    blank = np.zeros((rows, cols), bool)
+    for i in range(rows):
+        for j in range(cols):
+            cy = round((i + 1) * C_ROW_DIST) + (i * 7 + j * 3) % 5 - 2
+            cx = round((j + 1) * C_COL_DIST) + (i * 5 + j * 11) % 5 - 2
+            centers[i, j] = cy, cx
+            blank[i, j] = _c_blank(i, j)
+            if blank[i, j]:
+                continue
+            pts = filled_circle_points(5 + (i * 3 + j) % 10)
+            img[pts[:, 0] + cy, pts[:, 1] + cx] = 5000 + 500 * ((i + j) % 10)
+    return np.stack([img, img]), centers, blank
+
+
+def frame_c_pinlist() -> io.StringIO:
+    """Frame C's layout as a pinlist CSV: "(col, row)" 1-indexed."""
+    lines = ["Indices,MutantID"]
+    for i in range(C_GRID[0]):
+        for j in range(C_GRID[1]):
+            name = "BLANK" if _c_blank(i, j) else f"m{i}_{j}"
+            lines.append(f'"({j + 1}, {i + 1})",{name}')
+    return io.StringIO("\n".join(lines) + "\n")
+
+
 def as_dataarray(pkg, case: str, seed=None):
-    """Frame ``case`` ("A", "B" or "M") as a DataArray of package ``pkg``."""
+    """Frame ``case`` ("A", "B", "M", "C8", "C8V" or "C") as a DataArray of
+    package ``pkg``."""
+    if case == "C8":
+        return pkg.DataArray(frame_c8(), dims=("y", "x"))
+    if case == "C8V":
+        return pkg.DataArray(frame_c8v(), dims=("channel", "time", "y", "x"),
+                             coords={"channel": ["empty", "egfp"]})
+    if case == "C":
+        return pkg.DataArray(frame_c()[0], dims=("time", "y", "x"))
     if case == "A":
         return pkg.DataArray(frame_a()[0], dims=("y", "x"))
     if case == "M":
@@ -216,13 +328,15 @@ def digest(a) -> str:
 def summarize(xp) -> dict:
     """What the golden file holds of one result: the bead rows (y, x) in
     mark order and digests of the fg/bg masks and ROI crops; of an
-    ``mrbles`` result also the decoded tags (as unicode) and ``ln_vol``."""
+    ``mrbles`` result also the decoded tags (as unicode) and ``ln_vol``, of
+    a chip result the chamber tags."""
     rows = np.stack([np.asarray(xp.y.values, float).ravel(),
                      np.asarray(xp.x.values, float).ravel()], axis=1)
     out = {"rows": rows, "fg": digest(xp.fg.values),
            "bg": digest(xp.bg.values), "roi": digest(xp["roi"].values)}
     if "tag" in xp.variables:
         out["tag"] = np.asarray(xp.tag.values).astype(str)
+    if "ln_vol" in xp.variables:
         out["ln_vol"] = np.asarray(xp["ln_vol"].values, np.float64)
     return out
 
@@ -269,6 +383,21 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _event_once_ms(fn) -> float:
+    """Device time of ONE call of ``fn`` in ms, without a warm-up call: for
+    the plain twins at the full chip's batch, which take seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
@@ -306,6 +435,39 @@ def _stages(img, dev):
     return strong, weak, feats
 
 
+def _roi_stages(img, centers, roi_length, min_radius, max_radius, dev):
+    """Canny masks (N, L, L) and padded int8 features (N, 8, Lp, Lp) of the
+    chamber crops of one uint16 plane around ``centers`` (n, 2), on
+    ``dev``, through the stages of
+    ``magnify_tpu_torch.ops.detect.detect_rois_dense`` (the shapes and
+    values the chip path's refinement sees)."""
+    import torch
+    import torch.nn.functional as F
+
+    from magnify_tpu_torch.ops import detect, edge, geom, score
+
+    h, w = img.shape
+    L = roi_length
+    plane = torch.as_tensor(detect.normalize_planes_u8(img[None])[0]).to(dev)
+    cy = torch.as_tensor(centers[:, 0]).to(dev)
+    cx = torch.as_tensor(centers[:, 1]).to(dev)
+    rois = geom.extract_rois(plane, torch.clamp(cy - L // 2, 0, h - L),
+                             torch.clamp(cx - L // 2, 0, w - L), L)
+    u8 = edge.normalize_to_u8(rois)
+    dx, dy = edge.scharr(edge.gaussian_blur5_u8(u8))
+    grad = edge.sqrt_f32(dx * dx + dy * dy)
+    high_q = np.float32(1 - np.pi * min_radius / L**2)
+    lo, hi = edge.histogram_quantiles(grad, [np.float32(0.1), high_q],
+                                      batched=True)
+    strong, weak = edge.canny_nms(dx, dy, lo, hi)
+    edges = edge.hysteresis(strong, weak)
+    pad = 2 * max_radius
+    p = (pad, pad, pad, pad)
+    feats = score.alignment_features_q8(F.pad(edges, p), F.pad(dx, p),
+                                        F.pad(dy, p))
+    return strong, weak, feats
+
+
 def _frame_b_plane() -> np.ndarray:
     """Frame B's "red" channel stitched as ``stitch`` does it (1844^2)."""
     clip, rem = OVERLAP_B // 2, OVERLAP_B % 2
@@ -329,7 +491,7 @@ def _serpentine(h: int, w: int):
     return strong, chain
 
 
-def _hysteresis_record(dev, planes) -> dict:
+def _hysteresis_record(dev, planes, rois) -> dict:
     import torch
 
     from magnify_tpu_torch.ops import hysteresis as hyst
@@ -359,6 +521,24 @@ def _hysteresis_record(dev, planes) -> dict:
     s, w = _serpentine(256, 512)
     cases.append(("serpentine 256x512 tile_rows=8", torch.as_tensor(s).to(dev),
                   torch.as_tensor(w).to(dev), 8))
+    # Batches of planes: the chamber crops, widths that are no multiple of
+    # 4 or of the 128-column tile, heights below the tile's rows, and planes
+    # that would join across the plane border.
+    for tag, (s, w) in rois.items():
+        cases.append((f"ROI crops of frame {tag}", s, w, None))
+    for shape, tr in (((37, 40, 17), None), ((64, 72, 72), None),
+                      ((9, 33, 130), 8), ((300, 5, 72), None)):
+        s = rng.random(shape) > 0.99
+        w = s | (rng.random(shape) > 0.65)
+        cases.append((f"random batch {shape} tile_rows={tr}",
+                      torch.as_tensor(s).to(dev), torch.as_tensor(w).to(dev),
+                      tr))
+    s = np.zeros((6, 24, 72), bool)
+    w = np.zeros_like(s)
+    s[0::2, -1, :] = w[0::2, -1, :] = True  # plane k ends in a strong row
+    w[1::2, 0:3, :] = True                  # plane k + 1 starts in weak rows
+    cases.append(("planes that touch in memory", torch.as_tensor(s).to(dev),
+                  torch.as_tensor(w).to(dev), None))
     per_call = set()
     for name, s, w, tr in cases:
         before = hyst.launches
@@ -371,6 +551,9 @@ def _hysteresis_record(dev, planes) -> dict:
                                  f"{int((got != want).sum())} pixels differ")
         if name.startswith("serpentine") and int(got.sum()) != int(w.sum()):
             raise AssertionError("serpentine chain did not light up fully")
+        if name.startswith("planes that touch") and bool(got[1::2].any()):
+            raise AssertionError("hysteresis grew from one plane into the "
+                                 "next")
         _say(f"hysteresis == plain on {name} ({tuple(s.shape)}): "
              f"{int(got.sum())} edge pixels")
     if per_call != {hyst.LAUNCHES_PER_CALL}:
@@ -382,7 +565,9 @@ def _hysteresis_record(dev, planes) -> dict:
            "source": "magnify_tpu_torch/csrc/hysteresis.cu",
            "replaces": "magnify_tpu/ops/pallas_kernels.py:131",
            "launches_per_call": hyst.LAUNCHES_PER_CALL, "max_abs_err": 0}
-    for tag, s, w in (("", strong_a, weak_a), ("_frame_b", strong_b, weak_b)):
+    timed = [("", strong_a, weak_a), ("_frame_b", strong_b, weak_b)]
+    timed += [(f"_rois_{tag.lower()}", s, w) for tag, (s, w) in rois.items()]
+    for tag, s, w in timed:
         k_ms = _event_ms(lambda: hyst.hysteresis(s, w), 100)
         p_ms = _event_ms(lambda: hyst.hysteresis_plain(s, w), 3)
         # Strong and weak masks read once, the result written once: 3 B/px.
@@ -399,35 +584,45 @@ def _hysteresis_record(dev, planes) -> dict:
     return rec
 
 
-def _ring_corr_record(dev, feats_ab) -> dict:
+def _ring_corr_record(dev, feats_ab, roi_feats) -> dict:
+    """``roi_feats``: {frame: (features (N, 8, Lp, Lp), (min_radius,
+    max_radius))} of the chamber crops."""
     import torch
     import torch.nn.functional as F
 
     from magnify_tpu_torch.ops import score
 
-    weights, _dq = score._cached_tables(8, 12, str(dev))
-    n_r, _c, k, _ = weights.dense.shape
-    rad = k // 2
-    nnz = int((weights.dense != 0).sum())
-    before = score.launches
-    err = 0
-    for name, feats in zip(("frame A", "frame B"), feats_ab):
+    # (key suffix, name, features, weights, plain twin timed with a warm-up)
+    cases = [("", "frame A", feats_ab[0], (8, 12), True),
+             ("_frame_b", "frame B", feats_ab[1], (8, 12), True)]
+    for tag, (feats, radii) in roi_feats.items():
+        cases.append((f"_rois_{tag.lower()}", f"ROI crops of frame {tag}",
+                      feats, radii, feats.shape[0] <= 64))
+    err, per_call, plain_ms = 0, set(), {}
+    for sfx, name, feats, radii, _warm in cases:
+        weights, _dq = score._cached_tables(*radii, str(dev))
+        nnz = int((weights.dense != 0).sum())
+        before = score.launches
         got = score.ring_corr(feats, weights)
-        want = score.ring_corr_plain(feats, weights)
-        torch.cuda.synchronize()
-        e = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if e != 0 or got.shape != want.shape:
+        per_call.add(score.launches - before)
+        want = []
+        plain_ms[sfx] = _event_once_ms(
+            lambda: want.append(score.ring_corr_plain(feats, weights)))
+        e = int((got.to(torch.int64) - want[0].to(torch.int64)).abs().max())
+        if e != 0 or got.shape != want[0].shape:
             raise AssertionError(f"ring_corr kernel != plain twin on {name}: "
                                  f"max |diff| {e}")
         err = max(err, e)
         _say(f"ring_corr == plain on {name} features {tuple(feats.shape)} "
-             f"-> {tuple(got.shape)} int32, {int(weights.table.shape[0])} "
-             f"positions, {nnz} taps")
-    per_call = (score.launches - before) // 2
+             f"-> {tuple(got.shape)} int32, radii {radii}, "
+             f"{int(weights.table.shape[0])} positions, {nnz} taps")
+        del got, want
+    if per_call != {1}:
+        raise AssertionError(f"ring_corr launches per call {per_call}")
+    per_call = 1
 
     tf32 = torch.backends.cudnn.allow_tf32
     bench = torch.backends.cudnn.benchmark
-    dense_f = weights.dense.float()
     rec = {"name": "ring_corr", "route": "cuda",
            "source": "magnify_tpu_torch/csrc/ring_corr.cu",
            "replaces": "magnify_tpu/ops/score.py:637",
@@ -436,18 +631,29 @@ def _ring_corr_record(dev, feats_ab) -> dict:
                            "weights.dense.float(), padding=R)",
            "library_cudnn_allow_tf32": tf32,
            "library_cudnn_benchmark": bench}
-    for tag, feats in zip(("", "_frame_b"), feats_ab):
-        _, h, w = feats.shape
+    for tag, _name, feats, radii, warm in cases:
+        weights, _dq = score._cached_tables(*radii, str(dev))
+        dense_f = weights.dense.float()
+        n_r, _c, k, _ = weights.dense.shape
+        rad = k // 2
+        nnz = int((weights.dense != 0).sum())
+        h, w = feats.shape[-2:]
+        px = feats.numel() // 8  # pixels of all planes
         k_ms = _event_ms(lambda: score.ring_corr(feats, weights), 50)
-        p_ms = _event_ms(lambda: score.ring_corr_plain(feats, weights), 3)
-        ff = feats.float()[None]
-        lib = F.conv2d(ff, dense_f, padding=rad)[0]
-        lib_err = float((lib.double() - score.ring_corr(feats, weights)
-                         .double()).abs().max())
-        lib_ms = _event_ms(lambda: F.conv2d(ff, dense_f, padding=rad), 20)
+        # The full chip's batch takes seconds in float64: its one checked
+        # call above is its time.
+        p_ms = (_event_ms(lambda: score.ring_corr_plain(feats, weights), 3)
+                if warm else plain_ms[tag])
+        ff = feats.float().reshape(-1, 8, h, w)
+        lib = F.conv2d(ff, dense_f, padding=rad)
+        lib_err = float((lib.reshape(-1) - score.ring_corr(feats, weights)
+                         .reshape(-1)).abs().max())
+        del lib
+        lib_ms = _event_ms(lambda: F.conv2d(ff, dense_f, padding=rad),
+                           20 if warm else 3)
         # int8 features read once, int32 maps written once; one multiply
         # and one add per nonzero weight and pixel.
-        bound_ms, bound_by = _bound((8 + 4 * n_r) * h * w, 2 * nnz * h * w)
+        bound_ms, bound_by = _bound((8 + 4 * n_r) * px, 2 * nnz * px)
         rec.update({f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
                     f"library_ms{tag}": lib_ms,
                     f"library_max_abs_err{tag}": lib_err,
@@ -464,8 +670,19 @@ def _ring_corr_record(dev, feats_ab) -> dict:
 def kernel_phase(dev) -> list:
     strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
     strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
-    return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b))),
-            _ring_corr_record(dev, (feats_a, feats_b))]
+    # The chamber crops the chip path refines: around the drawn centers, at
+    # the default ROI length 72 and each frame's radii.
+    c8_centers = np.array([[(i + 1) * 100, (j + 1) * 100]
+                           for i in range(C8_GRID[0])
+                           for j in range(C8_GRID[1])])
+    s8, w8, f8 = _roi_stages(frame_c8(), c8_centers, 72, 8, 16, dev)
+    stack_c, centers_c, _blank = frame_c()
+    sc, wc, fc = _roi_stages(stack_c[0], centers_c.reshape(-1, 2), 72, 4, 15,
+                             dev)
+    return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b)),
+                               {"C8": (s8, w8), "C": (sc, wc)}),
+            _ring_corr_record(dev, (feats_a, feats_b),
+                              {"C8": (f8, (8, 16)), "C": (fc, (4, 15))})]
 
 
 def _check_case(case: str, xp, golden) -> None:
@@ -490,7 +707,10 @@ def _check_case(case: str, xp, golden) -> None:
     if not np.array_equal(got["tag"], want_tag):
         raise AssertionError(
             f"frame {case}: {int((got['tag'] != want_tag).sum())} of "
-            f"{len(want_tag)} decoded tags differ from the golden file")
+            f"{want_tag.size} tags differ from the golden file")
+    if "ln_vol" not in got:
+        _say(f"frame {case}: {want_tag.size} tags equal the golden file")
+        return
     want_vol = golden[f"{case}_ln_vol"]
     scale = float(np.abs(want_vol).max())
     err = float(np.abs(got["ln_vol"] - want_vol).max())
@@ -525,7 +745,7 @@ class _Launches:
 
     def __enter__(self):
         for mod in self.mods.values():
-            mod.launches = 0
+            mod.launches = mod.batched_launches = 0
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -535,11 +755,15 @@ class _Launches:
 
         torch.cuda.synchronize()
         counts = {name: mod.launches for name, mod in self.mods.items()}
-        _say(f"kernel launches in {self.path}: {counts}")
+        batched = {f"{name}_batched": mod.batched_launches
+                   for name, mod in self.mods.items()}
+        _say(f"kernel launches in {self.path}: {counts}, of them on a "
+             f"batch of planes {batched}")
         for name, n in counts.items():
             if n <= 0:
                 raise AssertionError(f"{self.path} never launched {name}")
         self.by_path[self.path] = counts
+        self.by_path.setdefault("_batched", {})[self.path] = batched
         return False
 
 
@@ -634,9 +858,10 @@ def main_path(records: list, dev) -> None:
     # The single-frame calls the stream is held to; their launches are the
     # stream's expected count and are not a path of their own.
     serial_m: dict = {}
-    with _Launches(serial_m, f"{n_frames_m} single mrbles calls, seeds 0-5"):
+    singles_path = f"{n_frames_m} single mrbles calls, seeds 0-5"
+    with _Launches(serial_m, singles_path):
         singles_m = [_mrbles(mt, frame, dev) for frame in frames_m]
-    (per_frame_m,) = serial_m.values()
+    per_frame_m = serial_m[singles_path]
     spectra, codes = mrbles_csvs()  # one pair of handles for every frame
 
     def stream_m():
@@ -662,13 +887,131 @@ def main_path(records: list, dev) -> None:
     _say(f"frame M: {ms_stream_m:.3f} ms per frame streamed (6 frames, "
          f"depth 2, median of 3) vs {ms_serial_m:.3f} ms serial")
 
-    for rec in records:
+    chip_paths(mt, dev, golden, by_path)
+
+    batched_by_path = by_path.pop("_batched")
+    for rec in list(records):
         rec["launches_by_path"] = {path: counts[rec["name"]]
                                    for path, counts in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
         _say(f"{rec['name']}: {rec['launches_per_call']} launches per call, "
              f"{rec['launches']} in the main paths "
              f"{rec['launches_by_path']}")
+        # The batched entry of the same kernel: its launches are those the
+        # chip paths made on a batch of planes, its times those at frame
+        # C's 1,568 chamber crops (frame C8's beside them).
+        name = rec["name"] + "_batched"
+        launches = {path: counts[name]
+                    for path, counts in batched_by_path.items()
+                    if counts[name]}
+        if not launches or set(launches) - {"chip_c8", "chip_c8_2ch2t",
+                                            "chip_c"}:
+            raise AssertionError(f"{name}: launched in {sorted(launches)}")
+        brec = {k: rec[k] for k in ("route", "source", "replaces",
+                                    "launches_per_call", "max_abs_err",
+                                    "bound_by")}
+        brec.update(name=name, launches=sum(launches.values()),
+                    launches_by_path=launches)
+        for key in ("ms", "plain_ms", "bound_ms", "bound_share",
+                    "library_ms"):
+            brec[key] = rec.get(f"{key}_rois_c")
+            brec[f"{key}_rois_c8"] = rec.get(f"{key}_rois_c8")
+        records.append(brec)
+        _say(f"{name}: {brec['launches']} launches in the chip paths "
+             f"{launches}")
+
+
+def chip_paths(mt, dev, golden, by_path: dict) -> None:
+    """``microfluidic_chip`` on frames C8, C8V (golden, cuda == cpu) and C
+    (truth)."""
+    import torch
+
+    from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.ops import hysteresis as hyst
+
+    # --- C8 and its variant: the golden file and the CPU -----------------
+    per_channel = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 2}
+    for case, path, n_search in (("C8", "chip_c8", 1),
+                                 ("C8V", "chip_c8_2ch2t", 2)):
+        data = as_dataarray(mt, case)
+        with _Launches(by_path, path):
+            xc = mt.microfluidic_chip(data, device=dev, **FRAME_C8_KW)
+        # Per search channel: detection, and ONE call for all 64 crops.
+        want = {k: n_search * v for k, v in per_channel.items()}
+        if by_path[path] != want:
+            raise AssertionError(f"{path} launches {by_path[path]} != {want}")
+        n_marks = int(np.prod(C8_GRID))
+        if xc["roi"].sizes["mark_row"] * xc["roi"].sizes["mark_col"] != \
+                n_marks:
+            raise AssertionError(f"frame {case}: roi {xc['roi'].shape}")
+        yx = summarize(xc)["rows"].reshape(-1, *C8_GRID, 2)[0]
+        truth = np.array([[((i + 1) * 100, (j + 1) * 100)
+                           for j in range(C8_GRID[1])]
+                          for i in range(C8_GRID[0])], float)
+        found = int((np.abs(yx - truth).max(axis=-1) <= 1).sum())
+        _say(f"frame {case}: found {found}/{n_marks} buttons within 1 px, "
+             f"roi {xc['roi'].shape}")
+        if found != n_marks:
+            raise AssertionError(f"frame {case}: {found}/{n_marks} buttons")
+        _check_case(case, xc, golden)
+        if case == "C8":  # half a minute of float64 convolutions on the CPU
+            x_cpu = mt.microfluidic_chip(data, device="cpu", **FRAME_C8_KW)
+            _assert_same_frame("frame C8 on cuda vs cpu", xc, x_cpu)
+            _say("frame C8: device='cuda' equals device='cpu' row for row "
+                 "(rows, digests, tags)")
+    data_c8 = as_dataarray(mt, "C8")
+    ms_c8 = _time_ms(lambda: mt.microfluidic_chip(data_c8, device=dev,
+                                                  **FRAME_C8_KW), 5)
+    _say(f"frame C8 warm microfluidic_chip(): {ms_c8:.3f} ms (median of 5); "
+         f"last_chip_timings {json.dumps(find.last_chip_timings)}")
+
+    # --- C: the full-size chip against where the buttons were drawn ----
+    stack, centers, blank = frame_c()
+    data_c = as_dataarray(mt, "C")
+
+    def run_c():
+        return mt.microfluidic_chip(data_c, pinlist=frame_c_pinlist(),
+                                    device=dev, **FRAME_C_KW)
+
+    torch.cuda.reset_peak_memory_stats()
+    with _Launches(by_path, "chip_c"):
+        xc = run_c()
+    if by_path["chip_c"] != per_channel:
+        raise AssertionError(f"chip_c launches {by_path['chip_c']} != "
+                             f"{per_channel}")
+    peak = torch.cuda.max_memory_allocated()
+    xc = xc.transpose("mark_row", "mark_col", ...)
+    y, x = np.asarray(xc.y.values), np.asarray(xc.x.values)  # (56, 28, 2)
+    tag = np.asarray(xc.tag.values)
+    if y.shape != C_GRID + (2,) or not (np.isfinite(y).all()
+                                        and np.isfinite(x).all()):
+        raise AssertionError(f"frame C: x/y of shape {y.shape} or not finite")
+    if not np.array_equal(tag == "", blank) or not bool(
+            np.asarray(xc.valid.values).all()):
+        raise AssertionError("frame C: tag/valid differ from the pinlist")
+    err = np.maximum(np.abs(y - centers[..., :1]), np.abs(x - centers[..., 1:]))
+    ok = (err <= 1).all(axis=-1)
+    n_expected = int((~blank).sum())
+    n_found = int(ok[~blank].sum())
+    _say(f"frame C: image {stack.shape[1:]}, {n_found}/{n_expected} "
+         f"non-blank buttons within 1 px of where they were drawn "
+         f"(max error {err[~blank].max():.1f} px), {int(blank.sum())} blank "
+         f"chambers, roi {xc['roi'].shape}")
+    if n_found != n_expected:
+        raise AssertionError(f"frame C: {n_found}/{n_expected} buttons")
+    fg = np.asarray(xc.fg.transpose("mark_row", "mark_col", ...).values)
+    radii = np.sqrt(fg.reshape(C_GRID + (2, -1))[..., 0, :].sum(-1) / np.pi)
+    drawn = np.array([[5 + (i * 3 + j) % 10 for j in range(C_GRID[1])]
+                      for i in range(C_GRID[0])], float)
+    r_err = np.abs(radii - drawn)[~blank]
+    _say(f"frame C: fg radius within {r_err.max():.2f} px of the drawn radius")
+    if r_err.max() > 1.5:
+        raise AssertionError("frame C: fg masks do not match the buttons")
+    ms_c = _time_ms(run_c, 3)
+    _say(f"frame C warm microfluidic_chip(): {ms_c:.3f} ms (median of 3, one "
+         f"searched + one copied timestep); last_chip_timings "
+         f"{json.dumps(find.last_chip_timings)}; peak device memory "
+         f"allocated {peak / 2**30:.3f} GiB ({peak} bytes)")
 
 
 # The 24-code, 4-lanthanide, 5-channel panel of the decode-scale check.

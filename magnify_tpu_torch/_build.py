@@ -37,8 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
-    "mg_hysteresis": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
-    "mg_ring_corr": ([_P, _I, _I, _P, _P, _I, _I, _I, _P, _P], _I),
+    "mg_hysteresis": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+    "mg_ring_corr": ([_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P], _I),
     "mg_ring_corr_smem": ([_I, _I], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }

@@ -1,6 +1,7 @@
-"""Bead finding (``find_beads``) with the dense detector on one device.
+"""Bead finding (``find_beads``) and chip-button finding (``find_buttons``)
+with the dense detector on one device.
 
-Torch port of the in-memory dense path of
+:class:`BeadFinder` is the torch port of the in-memory dense path of
 ``magnify_tpu.components.find.BeadFinder`` (``_fused_dense``):
 
 * host: uint8 normalization of the search planes (t = 0);
@@ -21,6 +22,18 @@ frames with consecutive frames overlapped: a producer thread does the host
 phase and a pinned, asynchronous upload up to ``depth`` frames ahead, the
 calling thread detects in input order, and one worker thread assembles
 masks and crops (and runs the pipeline's later components) behind it.
+
+:class:`ButtonFinder` is the port of ``ButtonFinder``'s fused dense timestep
+(``_fused_timestep`` and ``_chip_fused_packed``). :func:`chip_fused` runs a
+whole timestep on the device: per-channel dense detection + NMS +
+cross-channel dedupe at the chamber radius, the 1-D grid-offset sweeps,
+per-cluster regression and grid-line intersection
+(:mod:`magnify_tpu_torch.ops.gridfit`), then one batched re-detection over
+every chamber's crop (:func:`magnify_tpu_torch.ops.detect.detect_rois_dense`:
+one hysteresis call and one ring correlation for all chambers of a search
+channel). The host then crops the ROIs at the refined centers and
+rasterizes the fg disk and the bg annulus. The grid search with RANSAC or
+the tuning UI (``find_centers``/``find_rois``) is not ported.
 """
 
 from __future__ import annotations
@@ -30,23 +43,57 @@ import concurrent.futures
 import contextlib
 import math
 import threading
+import time
 
 import numpy as np
 import scipy.spatial
 import torch
 
-from magnify_tpu_torch import utils
+from magnify_tpu_torch import diagnostics, utils
 from magnify_tpu_torch.core import Variable
 from magnify_tpu_torch.core.lazy import alloc_output
 from magnify_tpu_torch.core.registry import components
 from magnify_tpu_torch.ops import detect as ops_detect
 from magnify_tpu_torch.ops import geom as ops_geom
+from magnify_tpu_torch.ops import gridfit
 from magnify_tpu_torch.parallel.streaming import PinnedUploader
 
-__all__ = ["BeadFinder"]
+__all__ = ["BeadFinder", "ButtonFinder", "chip_fused", "last_chip_timings"]
+
+#: What the last chip timestep spent where (seconds, host clock):
+#: ``upload_bytes``, ``upload_precision``, ``normalize_upload_s`` (host
+#: quantization and the copy to the device), ``dispatch_pull_s`` (the device
+#: timestep of :func:`chip_fused` up to its results on the host) and
+#: ``host_crops_masks_s``. The keys are the JAX package's.
+last_chip_timings: dict = {}
 
 # Budget for the (pairs, L, L) ownership temporaries.
 _PAIR_CHUNK_BYTES = 32 << 20
+
+
+def _progress(iterable, enabled):
+    if not enabled:
+        return iterable
+    try:
+        import tqdm
+
+        return tqdm.tqdm(iterable)
+    except ImportError:
+        return iterable
+
+
+def _check_detector(detector: str, interactive: bool) -> None:
+    """Only the dense detector is ported: refuse the rest by name."""
+    if detector not in ("auto", "dense", "ransac"):
+        raise ValueError(f"unknown detector {detector!r}")
+    if detector == "ransac":
+        raise NotImplementedError(
+            "the RANSAC detector is not ported yet (ROADMAP queue 1: "
+            "RANSAC parity mode); use detector='dense' or 'auto'")
+    if interactive:
+        raise NotImplementedError(
+            "the interactive tuning UI is not ported yet (ROADMAP "
+            "queue 1: plot)")
 
 
 def _channel_values(assay):
@@ -163,16 +210,7 @@ class BeadFinder:
     ):
         if min_bead_diameter > max_bead_diameter:
             raise ValueError("min_bead_diameter must be <= max_bead_diameter.")
-        if detector not in ("auto", "dense", "ransac"):
-            raise ValueError(f"unknown detector {detector!r}")
-        if detector == "ransac":
-            raise NotImplementedError(
-                "the RANSAC detector is not ported yet (ROADMAP queue 1: "
-                "RANSAC parity mode); use detector='dense' or 'auto'")
-        if interactive:
-            raise NotImplementedError(
-                "the interactive tuning UI is not ported yet (ROADMAP "
-                "queue 1: plot)")
+        _check_detector(detector, interactive)
         self.min_bead_radius = math.floor(min_bead_diameter / 2)
         self.max_bead_radius = math.ceil(max_bead_diameter / 2)
         self.low_edge_quantile = low_edge_quantile
@@ -393,6 +431,410 @@ class BeadFinder:
             num_iter=num_iter,
             min_roundness=min_roundness,
             roi_length=roi_length,
+            search_channel=search_channel,
+            interactive=interactive,
+            detector=detector,
+            device=device,
+        )
+
+
+# ---------------------------------------------------------------------------
+# ButtonFinder
+# ---------------------------------------------------------------------------
+
+def _roi_corners(ys: torch.Tensor, xs: torch.Tensor, roi_length: int, h: int,
+                 w: int):
+    """(tops, lefts) int64 of the slid-not-shrunk ROI windows around f32
+    centers, rounded half to even. A center that is not finite (a grid
+    that could not be fitted) is taken as 0, on every device."""
+    def corner(v, size):
+        v = torch.nan_to_num(torch.round(v), nan=0.0, posinf=0.0, neginf=0.0)
+        return torch.clamp(v.to(torch.int64) - roi_length // 2, 0,
+                           size - roi_length)
+
+    return corner(ys, h), corner(xs, w)
+
+
+def _refine_chambers(planes, xs, ys, low_q, high_q, min_roundness, *,
+                     roi_length, min_radius, max_radius):
+    """Per-chamber re-detection: crop every chamber from every search plane
+    (``planes`` (S, H, W)) and keep, per chamber, the best circle over the
+    search channels (a later channel wins only with a strictly better
+    score). Returns (circles (n, 3) int32 relative to the crop, scores (n,)
+    f32, ``-inf`` where no channel found a circle)."""
+    s, h, w = planes.shape
+    tops, lefts = _roi_corners(ys, xs, roi_length, h, w)
+    crops = ops_geom.extract_rois(planes, tops, lefts, roi_length)
+    best_score = torch.full(xs.shape, -torch.inf, dtype=torch.float32,
+                            device=planes.device)
+    best_circle = torch.zeros((xs.shape[0], 3), dtype=torch.int32,
+                              device=planes.device)
+    for ci in range(s):
+        circles, scores = ops_detect.detect_rois_dense(
+            crops[:, ci], low_q, high_q, min_roundness,
+            min_radius=min_radius, max_radius=max_radius)
+        better = torch.isfinite(scores) & (scores > best_score)
+        best_score = torch.where(better, scores, best_score)
+        best_circle = torch.where(better[:, None], circles, best_circle)
+    return best_circle, best_score
+
+
+def _grid_stage(circles, penalty, ppr, ppc, *, h, w, num_rows, num_cols,
+                row_dist, col_dist, top_chamber, left_chamber,
+                chamber_radius):
+    """Grid geometry from the detected centers (``circles`` (n, 3)): 1-D
+    cluster sweeps (or fixed labelling where the first chamber's offset is
+    given), robust per-cluster regression, and the intersection of the row
+    and column lines. Returns (mark_x (R, C), mark_y, row_slope, col_slope,
+    row_counts (R,), col_counts (C,)), f32."""
+    ys = circles[:, 0].to(torch.float32)
+    xs = circles[:, 1].to(torch.float32)
+    valid = torch.ones(ys.shape, dtype=torch.bool, device=ys.device)
+
+    def labels(points, chamber, total, count, dist, ideal):
+        if chamber is None:
+            return gridfit.cluster_1d_dev(
+                points, valid, total_length=total, num_clusters=count,
+                cluster_length=dist, ideal_num_points=ideal, penalty=penalty)
+        return gridfit.label_clusters_dev(
+            points, valid, offset=chamber, num_clusters=count,
+            cluster_length=2 * chamber_radius,
+            cluster_gap=dist - 2 * chamber_radius)
+
+    row_labels = labels(ys, top_chamber, h, num_rows, row_dist, ppr)
+    col_labels = labels(xs, left_chamber, w, num_cols, col_dist, ppc)
+    in_cluster = (row_labels >= 0) & (col_labels >= 0)
+    row_labels = torch.where(in_cluster, row_labels, -1)
+    col_labels = torch.where(in_cluster, col_labels, -1)
+    row_slope, row_intercepts, row_counts = gridfit.regress_clusters_dev(
+        xs, ys, row_labels, num_clusters=num_rows, ideal_num_points=ppr)
+    # Columns regress with the axes swapped to avoid near-vertical slopes.
+    col_slope, col_intercepts, col_counts = gridfit.regress_clusters_dev(
+        ys, xs, col_labels, num_clusters=num_cols, ideal_num_points=ppc)
+    mark_y = (row_slope * col_intercepts[None, :] + row_intercepts[:, None]
+              ) / (1 - row_slope * col_slope)
+    mark_x = mark_y * col_slope + col_intercepts[None, :]
+    return mark_x, mark_y, row_slope, col_slope, row_counts, col_counts
+
+
+def chip_fused(planes, low_q, high_q, high_q_roi, min_roundness, penalty,
+               ppr, ppc, *, num_rows, num_cols, row_dist, col_dist,
+               top_chamber, left_chamber, chamber_radius, min_radius,
+               max_radius, roi_length, normalized=True):
+    """A whole chip timestep on the device of ``planes``.
+
+    ``planes`` (S, H, W) holds the search channels only, quantized on the
+    host to uint8 values (``normalized``) or to uint16 values (then every
+    plane and crop is normalized on the device). Detection + NMS per
+    channel and the cross-channel dedupe at ``chamber_radius``, the grid
+    stage, and the batched per-chamber re-detection at the intersected
+    centers with ``high_q_roi`` as the upper Canny quantile. Returns a dict
+    of tensors on that device: ``circle`` (R*C, 3) int32 relative to each
+    chamber's crop, ``score`` (R*C,), ``mark_x``/``mark_y`` (R*C,) the grid
+    intersections, ``n_centers``, ``row_slope``, ``col_slope``,
+    ``row_counts`` (R,), ``col_counts`` (C,).
+    """
+    h, w = planes.shape[-2:]
+    blocks = []
+    for plane in planes:
+        circles, _scores = ops_detect.detect_dense(
+            plane, low_q, high_q, min_roundness, min_radius=min_radius,
+            max_radius=max_radius, min_dist=int(chamber_radius),
+            normalized=normalized)
+        blocks.append(circles)
+    centers = _cross_channel_dedupe(blocks, float(chamber_radius))
+    mark_x, mark_y, row_slope, col_slope, row_counts, col_counts = \
+        _grid_stage(centers, penalty, ppr, ppc, h=h, w=w, num_rows=num_rows,
+                    num_cols=num_cols, row_dist=row_dist, col_dist=col_dist,
+                    top_chamber=top_chamber, left_chamber=left_chamber,
+                    chamber_radius=chamber_radius)
+    circle, score = _refine_chambers(
+        planes, mark_x.reshape(-1), mark_y.reshape(-1), low_q, high_q_roi,
+        min_roundness, roi_length=roi_length, min_radius=min_radius,
+        max_radius=max_radius)
+    return dict(circle=circle, score=score, mark_x=mark_x.reshape(-1),
+                mark_y=mark_y.reshape(-1), n_centers=centers.shape[0],
+                row_slope=row_slope, col_slope=col_slope,
+                row_counts=row_counts, col_counts=col_counts)
+
+
+def _crop_rois_np(images, xs, ys, roi_length):
+    """Host ROI crops at clamped windows: images (..., H, W) numpy, returns
+    (n, ..., L, L)."""
+    h, w = images.shape[-2:]
+    out = np.empty((len(xs),) + images.shape[:-2]
+                   + (roi_length, roi_length), images.dtype)
+    for i, (px, py) in enumerate(zip(xs, ys)):
+        top, _, left, _ = utils.bounding_box(
+            int(round(float(px))), int(round(float(py))), roi_length, w, h
+        )
+        out[i] = images[..., top:top + roi_length, left:left + roi_length]
+    return out
+
+
+class ButtonFinder:
+    """Find chip buttons on a grid with the dense detector.
+
+    ``num_iter`` is accepted for parity with the JAX package and ignored:
+    the dense detector scores every (center, radius)."""
+
+    def __init__(
+        self,
+        row_dist: float,
+        col_dist: float,
+        min_button_diameter: int,
+        max_button_diameter: int,
+        chamber_diameter: int,
+        top_chamber,
+        left_chamber,
+        low_edge_quantile: float,
+        high_edge_quantile: float,
+        num_iter: int,
+        min_roundness: float,
+        cluster_penalty: float,
+        roi_length: int | None,
+        progress_bar: bool,
+        search_timestep,
+        search_channel,
+        interactive: bool,
+        detector: str = "auto",
+        device="cuda",
+    ):
+        if min_button_diameter > max_button_diameter:
+            raise ValueError("min_button_diameter must be <= max_button_diameter.")
+        _check_detector(detector, interactive)
+        self.row_dist = row_dist
+        self.col_dist = col_dist
+        self.min_button_radius = math.floor(min_button_diameter / 2)
+        self.max_button_radius = math.ceil(max_button_diameter / 2)
+        self.chamber_radius = round(chamber_diameter / 2)
+        self.top_chamber = top_chamber
+        self.left_chamber = left_chamber
+        self.low_edge_quantile = low_edge_quantile
+        self.high_edge_quantile = high_edge_quantile
+        self.min_roundness = min_roundness
+        self.cluster_penalty = cluster_penalty
+        self.roi_length = (roi_length if roi_length is not None
+                           else round(1.2 * chamber_diameter))
+        self.progress_bar = progress_bar
+        self.search_timesteps = sorted(utils.to_list(search_timestep))
+        self.search_channels = utils.to_list(search_channel)
+        self.device = torch.device(device)
+
+    def __call__(self, assay):
+        search_channels = self.search_channels or _channel_values(assay)
+        num_rows, num_cols = assay["tag"].shape
+        sizes = assay.sizes
+        n_ch, n_t = sizes["channel"], sizes["time"]
+        L = self.roi_length
+
+        roi = alloc_output("roi", (num_rows, num_cols, n_ch, n_t, L, L),
+                           assay["image"].dtype)
+        fg = alloc_output("fg", (num_rows, num_cols, n_t, L, L), bool)
+        bg = alloc_output("bg", (num_rows, num_cols, n_t, L, L), bool)
+        x = np.zeros((num_rows, num_cols, n_t))
+        y = np.zeros((num_rows, num_cols, n_t))
+        valid = assay["valid"].transpose(
+            "mark_row", "mark_col", "time").to_numpy().copy()
+        tag = assay["tag"].to_numpy()
+
+        search_idxs = [_channel_index(assay, c) for c in search_channels]
+        for t in _progress(self.search_timesteps, self.progress_bar):
+            images = assay.image.isel(time=t).to_numpy()  # (channel, H, W)
+            (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
+             y[..., t], valid[..., t]) = self._fused_timestep(
+                images, tag, valid[..., t], search_idxs)
+
+        # Timesteps that are not searched copy the positions and need ROI
+        # crops only: host slicing, with the next plane's read prefetched
+        # on a background thread.
+        copy_ts = [t for t in range(n_t) if t not in self.search_timesteps]
+        if copy_ts:
+            with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+                def _load(t):
+                    return assay.image.isel(time=int(t)).to_numpy()
+
+                pending = pool.submit(_load, copy_ts[0])
+                for i, t in enumerate(_progress(copy_ts, self.progress_bar)):
+                    images = pending.result()
+                    if i + 1 < len(copy_ts):
+                        pending = pool.submit(_load, copy_ts[i + 1])
+                    copy_t = (self.search_timesteps[0]
+                              if t < self.search_timesteps[0] else t - 1)
+                    xs = x[..., copy_t].reshape(-1)
+                    ys = y[..., copy_t].reshape(-1)
+                    crops = _crop_rois_np(images, xs, ys, L)
+                    roi[:, :, :, t] = crops.reshape(num_rows, num_cols, n_ch,
+                                                    L, L)
+                    fg[:, :, t] = fg[:, :, copy_t]
+                    bg[:, :, t] = bg[:, :, copy_t]
+                    x[..., t] = x[..., copy_t]
+                    y[..., t] = y[..., copy_t]
+                    valid[..., t] = valid[..., copy_t]
+
+        assay["roi"] = Variable(
+            ("mark_row", "mark_col", "channel", "time", "roi_y", "roi_x"), roi
+        )
+        assay = assay.assign_coords(
+            fg=(("mark_row", "mark_col", "time", "roi_y", "roi_x"), fg),
+            bg=(("mark_row", "mark_col", "time", "roi_y", "roi_x"), bg),
+            x=(("mark_row", "mark_col", "time"), x),
+            y=(("mark_row", "mark_col", "time"), y),
+            valid=(("mark_row", "mark_col", "time"), valid),
+        )
+        assay = assay.stack(mark=("mark_row", "mark_col")).transpose("mark", ...)
+        assay.cache(["roi", "fg", "bg"])
+        return assay
+
+    def _fused_timestep(self, images_np, tag, valid_t, search_idxs):
+        """One chip timestep: :func:`chip_fused` on ``self.device``, then
+        host crops at the refined centers plus the fg/bg rasters. Only the
+        search planes go to the device, quantized on the host to uint8
+        (exactly the device's own normalization) or, where rare outliers
+        compress the useful range, to uint16
+        (:func:`magnify_tpu_torch.ops.detect.choose_upload_precision`); the
+        other channels' ROI crops are host slices."""
+        num_rows, num_cols = tag.shape
+        L = self.roi_length
+        h, w = images_np.shape[-2:]
+
+        t0 = time.perf_counter()
+        raw_planes = np.ascontiguousarray(images_np[list(search_idxs)])
+        precision = ops_detect.choose_upload_precision(raw_planes)
+        normalized = precision == "u8"
+        if normalized:
+            planes_q = ops_detect.normalize_planes_u8(raw_planes)
+            planes_dev = torch.as_tensor(planes_q).to(self.device)
+        else:
+            # uint16 values, carried as f32 (exact): torch indexes no
+            # uint16 tensors.
+            planes_q = ops_detect.normalize_planes_u16(raw_planes)
+            planes_dev = torch.as_tensor(
+                planes_q.astype(np.float32)).to(self.device)
+        t1 = time.perf_counter()
+
+        for chamber, total, count, dist in (
+            (self.top_chamber, h, num_rows, self.row_dist),
+            (self.left_chamber, w, num_cols, self.col_dist),
+        ):
+            if chamber is None and gridfit.num_offsets(
+                    total, count, dist) <= 0:
+                raise ValueError(
+                    "cluster_1d: num_clusters * cluster_length exceeds "
+                    "total_length."
+                )
+
+        ppr = (tag != "").sum(axis=1).astype(np.float32)
+        ppc = (tag != "").sum(axis=0).astype(np.float32)
+        high_q_roi = 1 - np.pi * self.min_button_radius / L**2
+        out = chip_fused(
+            planes_dev, float(self.low_edge_quantile),
+            float(self.high_edge_quantile), float(high_q_roi),
+            float(self.min_roundness), float(self.cluster_penalty), ppr, ppc,
+            num_rows=num_rows, num_cols=num_cols,
+            row_dist=float(self.row_dist), col_dist=float(self.col_dist),
+            top_chamber=self.top_chamber, left_chamber=self.left_chamber,
+            chamber_radius=int(self.chamber_radius),
+            min_radius=self.min_button_radius,
+            max_radius=self.max_button_radius, roi_length=L,
+            normalized=normalized)
+        circle = out["circle"].cpu().numpy()
+        score = out["score"].cpu().numpy()
+        mark_x = out["mark_x"].cpu().numpy()
+        mark_y = out["mark_y"].cpu().numpy()
+        row_counts = out["row_counts"].cpu().numpy()
+        col_counts = out["col_counts"].cpu().numpy()
+        t2 = time.perf_counter()
+
+        for cnt, ideal, edge in (
+            (row_counts[0], ppr, 0), (row_counts[-1], ppr, num_rows - 1),
+            (col_counts[0], ppc, 0), (col_counts[-1], ppc, num_cols - 1),
+        ):
+            if cnt < 2 and ideal[edge] >= 2:
+                diagnostics.log.warning(
+                    "edge cluster %d has %d point(s); the chip grid is "
+                    "unlikely to be segmented correctly", edge, int(cnt),
+                )
+
+        # The device's f32 rounding of the crop corners: the detected
+        # circles are relative to them.
+        tops, lefts = (a.numpy().astype(np.int32) for a in _roi_corners(
+            torch.as_tensor(mark_y), torch.as_tensor(mark_x), L, h, w))
+        with np.errstate(invalid="ignore"):
+            refined = np.isfinite(score) & (tag.reshape(-1) != "")
+            new_y = np.where(refined, circle[:, 0] + tops, mark_y)
+            new_x = np.where(refined, circle[:, 1] + lefts, mark_x)
+            radius = np.where(refined, circle[:, 2],
+                              self.max_button_radius).astype(int)
+        tops2, lefts2 = (a.numpy().astype(np.int32) for a in _roi_corners(
+            torch.as_tensor(new_y), torch.as_tensor(new_x), L, h, w))
+        crops = np.stack([
+            images_np[..., t:t + L, le:le + L]
+            for t, le in zip(tops2, lefts2)
+        ])
+        with np.errstate(invalid="ignore"):
+            y_rel = np.round(new_y).astype(np.int32) - tops2
+            x_rel = np.round(new_x).astype(np.int32) - lefts2
+        centers_rel = np.stack([y_rel, x_rel], axis=1)
+        fg_h = utils.disk_masks((L, L), centers_rel, radius)
+        bg_h = utils.annulus_masks((L, L), centers_rel, self.chamber_radius,
+                                   self.max_button_radius)
+        n_ch = images_np.shape[0]
+        last_chip_timings.clear()
+        last_chip_timings.update(
+            upload_bytes=int(planes_q.nbytes),
+            upload_precision=precision,
+            normalize_upload_s=round(t1 - t0, 6),
+            dispatch_pull_s=round(t2 - t1, 6),
+            host_crops_masks_s=round(time.perf_counter() - t2, 6),
+        )
+        return (
+            crops.reshape(num_rows, num_cols, n_ch, L, L),
+            fg_h.reshape(num_rows, num_cols, L, L),
+            bg_h.reshape(num_rows, num_cols, L, L),
+            new_x.astype(float).reshape(num_rows, num_cols),
+            new_y.astype(float).reshape(num_rows, num_cols),
+            valid_t,
+        )
+
+    @components.register("find_buttons")
+    def make(
+        row_dist: float,
+        col_dist: float,
+        min_button_diameter: int,
+        max_button_diameter: int,
+        chamber_diameter: int,
+        top_chamber,
+        left_chamber,
+        low_edge_quantile: float,
+        high_edge_quantile: float,
+        num_iter: int,
+        min_roundness: float,
+        cluster_penalty: float,
+        roi_length: int | None,
+        progress_bar: bool,
+        search_timestep,
+        search_channel,
+        interactive: bool,
+        detector: str = "auto",
+        device="cuda",
+    ):
+        return ButtonFinder(
+            row_dist=row_dist,
+            col_dist=col_dist,
+            min_button_diameter=min_button_diameter,
+            max_button_diameter=max_button_diameter,
+            chamber_diameter=chamber_diameter,
+            top_chamber=top_chamber,
+            left_chamber=left_chamber,
+            low_edge_quantile=low_edge_quantile,
+            high_edge_quantile=high_edge_quantile,
+            num_iter=num_iter,
+            min_roundness=min_roundness,
+            cluster_penalty=cluster_penalty,
+            roi_length=roi_length,
+            progress_bar=progress_bar,
+            search_timestep=search_timestep,
             search_channel=search_channel,
             interactive=interactive,
             detector=detector,

@@ -1,9 +1,11 @@
-"""Preprocessing components: canonical layout and flat-field correction.
+"""Preprocessing components: canonical layout, flat-field correction and
+rotation.
 
 Host numpy code copied from ``magnify_tpu.components.preprocess``:
 ``standardize_format`` and ``flatfield_correct`` with scalar or array
-fields. Path fields, ``rotate`` and ``basic_correct`` are not ported yet
-(ROADMAP, queue 1).
+fields; ``rotate`` resamples every plane on a device
+(:func:`magnify_tpu_torch.ops.geom.rotate_plane`). Path fields and
+``basic_correct`` are not ported yet (ROADMAP, queue 1).
 """
 
 from __future__ import annotations
@@ -54,6 +56,31 @@ def standardize_format(xp):
     xp["tile"] = tile
 
     return xp.transpose(*STANDARD_DIMS, missing_dims="ignore")
+
+
+@component("rotate")
+def rotate(xp, rotation=0, device="cuda"):
+    """Rotate the stitched image about its center by ``rotation`` degrees:
+    bilinear resampling with zero fill on ``device``, shape and dtype
+    preserved. ``rotation=0`` is a no-op and touches no device."""
+    if rotation == 0 or "image" not in xp:
+        return xp
+    import torch
+
+    from magnify_tpu_torch.ops.geom import rotate_plane
+
+    var = xp["image"]
+    image = var.values
+    flat = image.reshape((-1,) + image.shape[-2:])
+    out = np.empty(flat.shape, image.dtype)
+    for k, plane in enumerate(flat):
+        rotated = rotate_plane(
+            torch.as_tensor(np.ascontiguousarray(plane).astype(np.float32))
+            .to(device), float(rotation))
+        out[k] = rotated.cpu().numpy().astype(image.dtype)
+    xp["image"] = Variable(var.dims, out.reshape(image.shape),
+                           var.variable.attrs)
+    return xp
 
 
 def _load_field(value):

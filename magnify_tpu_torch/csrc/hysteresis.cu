@@ -4,7 +4,12 @@
 // VMEM kernel, _hysteresis_kernel) and :_hysteresis_tiled_call (serpentine
 // tiled kernel, _tiled_hysteresis_kernel). Both compute the least fixpoint
 // of cur = cur | (weak & dilate8(cur)) from cur = strong, 8-connected, with
-// a zero border. One design serves every plane size.
+// a zero border. One design serves every plane size, and a batch of planes
+// of one size in the same four launches: the per-chamber crops of the chip
+// path (1,568 planes of 72 x 72) go through one call. The planes of a batch
+// lie one after another in every buffer; a pixel's index is its offset in
+// the whole batch, and only neighbours inside one plane are ever united, so
+// components never join across planes.
 //
 // The same set without a fixpoint. With F = weak | strong,
 //
@@ -26,7 +31,7 @@
 // read back by the later passes, mostly from the 50 MB L2. The fixpoint
 // design it replaces relaunched sweeps until one changed nothing, a host
 // round trip per sweep; this one is four launches per plane, fixed by the
-// shape, with no host sync between them.
+// shape (not by the number of planes), with no host sync between them.
 //
 // Design: block-based union-find labelling (Playne & Hawick, "A New
 // Algorithm for Parallel Connected-Component Labelling on GPUs", IEEE TPDS
@@ -111,11 +116,13 @@ struct GlobalLoad {  // L2, not a stale L1 line: other SMs are writing
 
 __global__ void __launch_bounds__(kThreads)
 hyst_local(const uint8_t* __restrict__ strong,
-           const uint8_t* __restrict__ weak, int h, int w, int tile_rows,
-           int* __restrict__ labels) {
+           const uint8_t* __restrict__ weak, int h, int w, int tiles_x,
+           int tile_rows, int* __restrict__ labels) {
   extern __shared__ int smem[];
   volatile int* lab = smem;
-  const int x0 = blockIdx.x * kTileW;
+  // blockIdx.x = plane * tiles_x + the tile's column index.
+  const int base = (blockIdx.x / tiles_x) * h * w;
+  const int x0 = (blockIdx.x % tiles_x) * kTileW;
   const int y0 = blockIdx.y * tile_rows;
   const int n = tile_rows * kTileW;
   const int tid = threadIdx.x;
@@ -136,7 +143,7 @@ hyst_local(const uint8_t* __restrict__ strong,
       const int gx = x0 + i % kTileW;
       f[k] = false;
       if (i < n && gy < h && gx < w) {
-        const size_t g = (size_t)gy * w + gx;
+        const int g = base + gy * w + gx;
         f[k] = strong[g] | weak[g];
       }
     }
@@ -185,20 +192,22 @@ hyst_local(const uint8_t* __restrict__ strong,
     int v = -1;
     if (lab[i] >= 0) {
       const int r = find_halving(lab, i, SharedLoad());
-      v = (y0 + r / kTileW) * w + x0 + r % kTileW;
+      v = base + (y0 + r / kTileW) * w + x0 + r % kTileW;
     }
-    labels[(size_t)gy * w + gx] = v;
+    labels[base + gy * w + gx] = v;
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-hyst_merge(int h, int w, int tile_rows, int* __restrict__ labels) {
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * tile_rows;
+hyst_merge(int h, int w, int tiles_x, int tile_rows,
+           int* __restrict__ labels) {
+  const int base = (blockIdx.x / tiles_x) * h * w;
+  const int tx = blockIdx.x % tiles_x;
+  const int ty = blockIdx.y;
+  const int x0 = tx * kTileW;
+  const int y0 = ty * tile_rows;
   const int tw = min(kTileW, w - x0);
   const int th = min(tile_rows, h - y0);
-  const int ty = blockIdx.y;
-  const int tx = blockIdx.x;
   // The tile's top row, then its left and right columns below that row:
   // the only pixels with a backward neighbour in another tile.
   const int n = tw + 2 * (th - 1);
@@ -214,10 +223,13 @@ hyst_merge(int h, int w, int tile_rows, int* __restrict__ labels) {
       y = y0 + 1 + (k - tw - (th - 1));
       x = x0 + tw - 1;
     }
-    const int p = y * w + x;
+    const int p = base + y * w + x;
     if (__ldcg(labels + p) < 0) continue;
+    // (yy, xx) is a position in this plane: a neighbour outside the plane
+    // is no neighbour, whatever lies there in the batch.
     auto in_f = [&](int yy, int xx) {
-      return yy >= 0 && xx >= 0 && xx < w && __ldcg(labels + yy * w + xx) >= 0;
+      return yy >= 0 && xx >= 0 && xx < w &&
+             __ldcg(labels + base + yy * w + xx) >= 0;
     };
     auto other_tile = [&](int yy, int xx) {
       return yy / tile_rows != ty || xx / kTileW != tx;
@@ -262,12 +274,14 @@ hyst_output(const int* __restrict__ labels, int n, uint8_t* __restrict__ out) {
 
 extern "C" {
 
-// Hysteresis of one plane: `strong`, `weak` (h, w) uint8 0/1, `labels`
-// (h, w) int32 scratch, `out` (h, w) uint8 0/1; h * w < 2^31 - 1. Four
-// launches on `stream`, no synchronisation. Returns the first
-// cudaGetLastError() that is not cudaSuccess, else 0.
-int mg_hysteresis(const void* strong, const void* weak, int h, int w,
-                  int tile_rows, void* labels, void* out, void* stream) {
+// Hysteresis of `n_planes` planes: `strong`, `weak` (n_planes, h, w) uint8
+// 0/1, `labels` (n_planes, h, w) int32 scratch, `out` (n_planes, h, w) uint8
+// 0/1; n_planes * h * w < 2^31 - 1. Four launches on `stream` for the whole
+// batch, no synchronisation. Returns the first cudaGetLastError() that is
+// not cudaSuccess, else 0.
+int mg_hysteresis(const void* strong, const void* weak, int n_planes, int h,
+                  int w, int tile_rows, void* labels, void* out,
+                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* st = static_cast<const uint8_t*>(strong);
   int* lab = static_cast<int*>(labels);
@@ -277,14 +291,15 @@ int mg_hysteresis(const void* strong, const void* weak, int h, int w,
         hyst_local, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 tiles((w + kTileW - 1) / kTileW, (h + tile_rows - 1) / tile_rows);
-  const int n = h * w;
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const dim3 tiles(tiles_x * n_planes, (h + tile_rows - 1) / tile_rows);
+  const int n = n_planes * h * w;
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaError_t e;
   hyst_local<<<tiles, kThreads, smem, s>>>(
-      st, static_cast<const uint8_t*>(weak), h, w, tile_rows, lab);
+      st, static_cast<const uint8_t*>(weak), h, w, tiles_x, tile_rows, lab);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  hyst_merge<<<tiles, kThreads, 0, s>>>(h, w, tile_rows, lab);
+  hyst_merge<<<tiles, kThreads, 0, s>>>(h, w, tiles_x, tile_rows, lab);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   hyst_mark<<<blocks, kThreads, 0, s>>>(st, n, lab);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;

@@ -40,7 +40,14 @@
 // across the positions of a column were slower on the card (PERF.md,
 // Findings): the runs of consecutive ring rows are short, and walking them
 // cost more instructions than the loads they saved. int32 is exact: |sum| <=
-// 127 * sum|w| per radius (< 2^24 at radii 8-12).
+// 127 * sum|w| per radius: 1.64e6 at radii 8-12 and 2.12e6 at the chip's
+// radii 4-15, both below 2^24.
+//
+// A batch of planes (N, C, H, W) -> (N, n_radii, H, W) goes through one
+// launch: blockIdx.x = plane * tiles_x + the tile's column index, and each
+// CTA offsets its feature and output pointers by its plane. The chip path
+// scores every chamber's padded crop that way (1,568 planes of 8 x 132 x
+// 132 at radii 4-15: 668 positions, a 16-pixel halo).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,7 +66,7 @@ __device__ __forceinline__ uint32_t byte_at(const int8_t* f, size_t i) {
 
 template <int kHalo>
 __global__ void __launch_bounds__(kThreads)
-ring_corr_kernel(const int8_t* __restrict__ f, int h, int w,
+ring_corr_kernel(const int8_t* __restrict__ f, int h, int w, int tiles_x,
                  const int4* __restrict__ table,
                  const int* __restrict__ offsets, int n_radii, int rad,
                  int32_t* __restrict__ out) {
@@ -73,9 +80,15 @@ ring_corr_kernel(const int8_t* __restrict__ f, int h, int w,
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * kTileW + tx;
-  const int x0 = blockIdx.x * kTileW;
+  const int x0 = (blockIdx.x % tiles_x) * kTileW;
   const int y0 = blockIdx.y * kTileH;
   const size_t plane = (size_t)h * w;
+  // This CTA's plane of the batch: 8 feature channels in, n_radii maps out.
+  // 8 * plane is a multiple of 4 bytes where w is, so the 4-byte loads
+  // below stay aligned in every plane.
+  const size_t batch = blockIdx.x / tiles_x;
+  f += batch * 8 * plane;
+  out += batch * n_radii * plane;
 
   // Shared pixel (sy, sx) is plane pixel (y0 + sy - kHalo, x0 + sx - kHalo).
   if ((w & 3) == 0) {
@@ -192,7 +205,7 @@ size_t smem_bytes(int halo, int n_pos) {
 }
 
 template <int kHalo>
-int launch(const int8_t* f, int h, int w, const int4* table,
+int launch(const int8_t* f, int n_planes, int h, int w, const int4* table,
            const int* offsets, int n_radii, int n_pos, int rad, int32_t* out,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(kHalo, n_pos);
@@ -202,10 +215,11 @@ int launch(const int8_t* f, int h, int w, const int4* table,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  const int tiles_x = (w + kTileW - 1) / kTileW;
+  const dim3 grid(tiles_x * n_planes, (h + kTileH - 1) / kTileH);
   const dim3 block(kTileW, kThreadRows);
   ring_corr_kernel<kHalo><<<grid, block, smem, stream>>>(
-      f, h, w, table, offsets, n_radii, rad, out);
+      f, h, w, tiles_x, table, offsets, n_radii, rad, out);
   return (int)cudaGetLastError();
 }
 
@@ -220,12 +234,13 @@ int mg_ring_corr_smem(int rad, int n_pos) {
   return halo < 0 ? -1 : (int)smem_bytes(halo, n_pos);
 }
 
-// f: (8, h, w) int8; table: (n_pos, 4) int32 entries (i | j << 16, weights
-// of channels 0-3, of channels 4-7, radius), radius r's at [offsets[r],
-// offsets[r + 1]) with offsets[n_radii] = n_pos; rad: the kernel's
-// half-width R; out: (n_radii, h, w) int32. Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue if no halo covers rad.
-int mg_ring_corr(const void* f, int h, int w, const void* table,
+// f: (n_planes, 8, h, w) int8; table: (n_pos, 4) int32 entries (i | j << 16,
+// weights of channels 0-3, of channels 4-7, radius), radius r's at
+// [offsets[r], offsets[r + 1]) with offsets[n_radii] = n_pos; rad: the
+// kernel's half-width R; out: (n_planes, n_radii, h, w) int32. One launch
+// for the whole batch. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue if no halo covers rad.
+int mg_ring_corr(const void* f, int n_planes, int h, int w, const void* table,
                  const void* offsets, int n_radii, int n_pos, int rad,
                  void* out, void* stream) {
   const int8_t* fp = static_cast<const int8_t*>(f);
@@ -234,13 +249,27 @@ int mg_ring_corr(const void* f, int h, int w, const void* table,
   int32_t* o = static_cast<int32_t*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (halo_for(rad)) {
-    case 4: return launch<4>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
-    case 8: return launch<8>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
-    case 12: return launch<12>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
-    case 16: return launch<16>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
-    case 24: return launch<24>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
-    case 32: return launch<32>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
-    case 48: return launch<48>(fp, h, w, tp, op, n_radii, n_pos, rad, o, s);
+    case 4:
+      return launch<4>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
+    case 8:
+      return launch<8>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
+    case 12:
+      return launch<12>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
+    case 16:
+      return launch<16>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
+    case 24:
+      return launch<24>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
+    case 32:
+      return launch<32>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
+    case 48:
+      return launch<48>(fp, n_planes, h, w, tp, op, n_radii, n_pos, rad, o,
+                        s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,5 @@
-"""Edge-detection stack: blur -> Scharr -> exact quantiles -> Canny.
+"""Edge-detection stack: normalize -> blur -> Scharr -> exact quantiles ->
+Canny.
 
 Torch port of ``magnify_tpu.ops.edge`` on the dense detector's path,
 bit-identical to it: the 5-tap Gaussian blur rounds to uint8 values, Scharr
@@ -11,6 +12,11 @@ Every sum below is written as eager ops in the reference's order (no
 ``addcmul``/``alpha=``/compile). Where the reference's compiled program
 contracts a multiply-add into one fused multiply-add (XLA on the CPU does,
 inside ``jit``), the port computes that FMA exactly with :func:`fma_f32`.
+
+Every function takes one (H, W) plane or a batch (N, H, W) of planes of one
+size (the chip path's per-chamber crops, which the JAX package runs under
+``jax.vmap``); a batch gives, plane for plane, what the single-plane call
+gives, with per-plane normalization and per-plane quantiles.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ __all__ = [
     "fma_f32",
     "gaussian_blur5_u8",
     "histogram_quantiles",
+    "normalize_to_u8",
     "scharr",
     "sqrt_f32",
 ]
@@ -39,19 +46,32 @@ _DERIV = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
 _TG22 = 13573  # tan(22.5 deg) in Q15, as used by OpenCV's Canny.
 
 
+def normalize_to_u8(img: torch.Tensor) -> torch.Tensor:
+    """Per-plane min-max normalization to [0, 255] with trunc cast, as f32
+    (``magnify_tpu.ops.edge.normalize_to_u8``; the host twin is
+    :func:`magnify_tpu_torch.ops.detect.normalize_planes_u8`). A constant
+    plane comes out all zero."""
+    x = img.to(torch.float32)
+    x = x - x.amin(dim=(-2, -1), keepdim=True)
+    peak = x.amax(dim=(-2, -1), keepdim=True)
+    return torch.trunc(torch.where(peak > 0, 255.0 * x / peak, x))
+
+
 def _sepconv(img: torch.Tensor, krow, kcol) -> torch.Tensor:
     """Separable 2-D correlation with BORDER_REFLECT_101 semantics."""
     ph, pw = len(krow) // 2, len(kcol) // 2
-    x = F.pad(img[None, None], (pw, pw, ph, ph), mode="reflect")[0, 0]
-    h, w = img.shape
-    out = torch.zeros((h, w + 2 * pw), dtype=torch.float32, device=img.device)
+    lead, (h, w) = img.shape[:-2], img.shape[-2:]
+    x = F.pad(img.reshape(-1, 1, h, w), (pw, pw, ph, ph), mode="reflect")
+    x = x.reshape(lead + (h + 2 * ph, w + 2 * pw))
+    out = torch.zeros(lead + (h, w + 2 * pw), dtype=torch.float32,
+                      device=img.device)
     for i, kv in enumerate(krow):
         if kv != 0.0:
-            out = out + float(kv) * x[i:i + h, :]
-    out2 = torch.zeros((h, w), dtype=torch.float32, device=img.device)
+            out = out + float(kv) * x[..., i:i + h, :]
+    out2 = torch.zeros(lead + (h, w), dtype=torch.float32, device=img.device)
     for j, kv in enumerate(kcol):
         if kv != 0.0:
-            out2 = out2 + float(kv) * out[:, j:j + w]
+            out2 = out2 + float(kv) * out[..., j:j + w]
     return out2
 
 
@@ -95,7 +115,8 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float64).to(torch.float32)
 
 
-def histogram_quantiles(values: torch.Tensor, qs) -> torch.Tensor:
+def histogram_quantiles(values: torch.Tensor, qs, *,
+                        batched: bool = False) -> torch.Tensor:
     """Exact quantiles with ``np.quantile``'s linear interpolation.
 
     The k-th and (k+1)-th order statistics come from one sort; the rank
@@ -103,18 +124,24 @@ def histogram_quantiles(values: torch.Tensor, qs) -> torch.Tensor:
     reference computes them, and the interpolation
     ``x_k + frac * (x_k1 - x_k)`` ends in one FMA, as the reference's
     compiled program evaluates it.
+
+    Returns (len(qs),) over all of ``values``; with ``batched`` the leading
+    dimension is a batch, each entry has its own quantiles (one sort along
+    the flattened rest) and the result is (len(qs), N).
     """
-    flat = values.reshape(-1)
-    n = flat.shape[0]
+    flat = values.reshape(values.shape[0], -1) if batched else \
+        values.reshape(-1)
+    n = flat.shape[-1]
     rank = np.asarray(qs, np.float32).reshape(-1) * np.float32(n - 1)
     k = np.clip(np.floor(rank).astype(np.int64), 0, n - 1)
     frac = rank - k.astype(np.float32)
     k1 = np.minimum(k + 1, n - 1)
-    srt = torch.sort(flat).values
-    x_k = srt[torch.as_tensor(k, device=flat.device)]
-    x_k1 = srt[torch.as_tensor(k1, device=flat.device)]
+    srt = torch.sort(flat, dim=-1).values
+    x_k = srt[..., torch.as_tensor(k, device=flat.device)]
+    x_k1 = srt[..., torch.as_tensor(k1, device=flat.device)]
     frac_t = torch.as_tensor(frac, device=flat.device)
-    return fma_f32(frac_t, x_k1 - x_k, x_k)
+    out = fma_f32(frac_t.expand_as(x_k), x_k1 - x_k, x_k)
+    return out.T if batched else out
 
 
 def canny_nms(dx: torch.Tensor, dy: torch.Tensor, low_thresh: torch.Tensor,
@@ -122,20 +149,21 @@ def canny_nms(dx: torch.Tensor, dy: torch.Tensor, low_thresh: torch.Tensor,
     """Sector non-max-suppression + double threshold; returns (strong, weak).
 
     OpenCV's fixed-point sector tests on int16-quantized gradients with L2
-    squared magnitudes, compared as f32 (``mag`` can exceed 2^24).
+    squared magnitudes, compared as f32 (``mag`` can exceed 2^24). For a
+    batch (N, H, W) the thresholds are (N,), one pair per plane.
     """
     xs = torch.clamp(torch.trunc(dx), -32768, 32767).to(torch.int32)
     ys = torch.clamp(torch.trunc(dy), -32768, 32767).to(torch.int32)
     mag = xs * xs + ys * ys
-    low2 = low_thresh.to(torch.float32) ** 2
-    high2 = high_thresh.to(torch.float32) ** 2
+    low2 = (low_thresh.to(torch.float32) ** 2)[..., None, None]
+    high2 = (high_thresh.to(torch.float32) ** 2)[..., None, None]
     magf = mag.to(torch.float32)
 
-    h, w = magf.shape
+    h, w = magf.shape[-2:]
     mp = F.pad(magf, (1, 1, 1, 1))
 
     def shift(dr, dc):
-        return mp[1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
+        return mp[..., 1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
 
     left, right = shift(0, -1), shift(0, 1)
     up, down = shift(-1, 0), shift(1, 0)
@@ -172,20 +200,26 @@ def canny(dx, dy, low_thresh, high_thresh):
     return hysteresis(strong, weak)
 
 
-def edge_pipeline(img_u8: torch.Tensor, low_edge_quantile: float,
-                  high_edge_quantile: float):
-    """blur -> Scharr -> quantile thresholds -> Canny on uint8-valued data.
+def edge_pipeline(img: torch.Tensor, low_edge_quantile: float,
+                  high_edge_quantile: float, normalized: bool = True):
+    """normalize -> blur -> Scharr -> quantile thresholds -> Canny.
 
-    The counterpart of ``magnify_tpu.ops.edge.edge_pipeline(...,
-    normalized=True)``: the caller has already normalized the plane to
-    uint8 values (:func:`magnify_tpu_torch.ops.detect.normalize_planes_u8`).
-    Returns (edges bool, dx, dy); the dense detector never reads the
-    gradient angles, so they are not computed.
+    The counterpart of ``magnify_tpu.ops.edge.edge_pipeline``. With
+    ``normalized`` (the default here) the caller has already normalized the
+    plane to uint8 values
+    (:func:`magnify_tpu_torch.ops.detect.normalize_planes_u8`); otherwise
+    every plane is min-max normalized first (:func:`normalize_to_u8`), as
+    the chip path's per-chamber crops are. ``img``: (H, W), or a batch
+    (N, H, W) whose planes each get their own thresholds. Returns (edges
+    bool, dx, dy); the dense detector never reads the gradient angles, so
+    they are not computed.
     """
-    blurred = gaussian_blur5_u8(img_u8)
+    u8 = img.to(torch.float32) if normalized else normalize_to_u8(img)
+    blurred = gaussian_blur5_u8(u8)
     dx, dy = scharr(blurred)
     grad = sqrt_f32(dx * dx + dy * dy)
     low_t, high_t = histogram_quantiles(
-        grad, [np.float32(low_edge_quantile), np.float32(high_edge_quantile)])
+        grad, [np.float32(low_edge_quantile), np.float32(high_edge_quantile)],
+        batched=img.ndim == 3)
     edges = canny(dx, dy, low_t, high_t)
     return edges, dx, dy

@@ -1,10 +1,12 @@
-"""Disk rasterization table shared by the host mask code.
+"""Geometry: the disk rasterization table of the host mask code, batched
+ROI windows and plane rotation on a device.
 
 A filled Bresenham disk is exactly ``{(dy, dx): |dy| <= r, |dx| <= ext_r[|dy|]}``,
 so the ownership masks of :mod:`magnify_tpu_torch.components.find` rasterize
 with one table lookup and a compare. Numpy code copied from
 ``magnify_tpu.ops.geom.extent_lut``; the table is array-equal to the JAX
-package's.
+package's. :func:`extract_rois` and :func:`rotate_plane` are the torch
+counterparts of the JAX package's functions of the same names.
 """
 
 from __future__ import annotations
@@ -12,10 +14,11 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from magnify_tpu_torch import utils
 
-__all__ = ["extent_lut"]
+__all__ = ["extent_lut", "extract_rois", "rotate_plane"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -29,3 +32,46 @@ def extent_lut(max_radius: int) -> np.ndarray:
     for r in range(max_radius + 1):
         lut[r, : r + 1] = utils.disk_extents(r)
     return lut
+
+
+def extract_rois(image: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,
+                 roi_length: int) -> torch.Tensor:
+    """Fixed-size ROI windows as one gather: image (..., H, W) -> (N, ..., L,
+    L), window k at (tops[k], lefts[k]). The windows must lie inside the
+    image (the caller clamps the corners)."""
+    span = torch.arange(roi_length, device=image.device)
+    rows = (tops.to(torch.int64)[:, None] + span)[:, :, None]   # (N, L, 1)
+    cols = (lefts.to(torch.int64)[:, None] + span)[:, None, :]  # (N, 1, L)
+    return image[..., rows, cols].movedim(-3, 0)
+
+
+def rotate_plane(image: torch.Tensor, degrees: float) -> torch.Tensor:
+    """Rotate a 2-D plane about its center (bilinear, zero fill); the output
+    keeps the input's shape and is float32. f32 arithmetic in the order of
+    ``magnify_tpu.ops.geom.rotate_plane``; sin and cos come from another
+    library, so the two agree to a few f32 ulps of the pixel range, not bit
+    for bit."""
+    h, w = image.shape
+    dev = image.device
+    theta = np.float32(degrees) * np.float32(np.pi / 180.0)
+    cos_t, sin_t = float(np.cos(theta)), float(np.sin(theta))
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    rows = torch.arange(h, dtype=torch.float32, device=dev)[:, None] - cy
+    cols = torch.arange(w, dtype=torch.float32, device=dev)[None, :] - cx
+    # Inverse mapping: output pixel <- input coordinates.
+    src_r = cos_t * rows + sin_t * cols + cy
+    src_c = -sin_t * rows + cos_t * cols + cx
+    r0, c0 = torch.floor(src_r), torch.floor(src_c)
+    fr, fc = src_r - r0, src_c - c0
+    img = image.to(torch.float32)
+
+    def sample(rr, cc):
+        inside = (rr >= 0) & (rr < h) & (cc >= 0) & (cc < w)
+        ri = rr.clamp(0, h - 1).to(torch.int64)
+        ci = cc.clamp(0, w - 1).to(torch.int64)
+        return torch.where(inside, img[ri, ci], 0.0)
+
+    return (sample(r0, c0) * (1 - fr) * (1 - fc)
+            + sample(r0, c0 + 1) * (1 - fr) * fc
+            + sample(r0 + 1, c0) * fr * (1 - fc)
+            + sample(r0 + 1, c0 + 1) * fr * fc)

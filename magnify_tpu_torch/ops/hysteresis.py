@@ -6,7 +6,9 @@ kernels (the whole-plane ``_hysteresis_call`` and the tiled
 ``cur = cur | (weak & dilate8(cur))`` from ``cur = strong``. The CUDA
 kernel computes the same set as ``F & (the 8-connected component of F
 holds a strong pixel)`` with ``F = weak | strong`` (the argument is in the
-source header), by union-find labelling in four launches per plane.
+source header), by union-find labelling in four launches per call: one
+plane, or a batch of planes of one size (the chip path's per-chamber crops,
+which the JAX package grows with a vmapped ``while_loop``).
 
 :func:`hysteresis` launches the kernel for CUDA tensors and runs
 :func:`hysteresis_plain` (the XLA ``dilate8`` loop of
@@ -20,12 +22,15 @@ import torch.nn.functional as F
 
 from magnify_tpu_torch import _build
 
-__all__ = ["hysteresis", "hysteresis_plain", "launches", "LAUNCHES_PER_CALL"]
+__all__ = ["hysteresis", "hysteresis_plain", "launches", "batched_launches",
+           "LAUNCHES_PER_CALL"]
 
 #: Kernel launches since the count was last reset.
 launches = 0
-#: Kernel launches of one call on a non-empty plane: local labelling,
-#: border merge, seed marking, output.
+#: Those of them that calls on a batch (N, H, W) made.
+batched_launches = 0
+#: Kernel launches of one call on a non-empty plane or batch of planes:
+#: local labelling, border merge, seed marking, output.
 LAUNCHES_PER_CALL = 4
 
 # 16 x 128 tiles: of 8/16/32/64/128 rows, the fastest on a 1024^2 frame's
@@ -36,19 +41,24 @@ MAX_TILE_ROWS = 128  # 64 KB of int32 labels per tile in shared memory
 
 
 def dilate8(m: torch.Tensor) -> torch.Tensor:
-    """One step of 8-connected boolean dilation (zero border)."""
-    h, w = m.shape
+    """One step of 8-connected boolean dilation (zero border) of every
+    (H, W) plane of ``m``."""
+    h, w = m.shape[-2:]
     p = F.pad(m.to(torch.uint8), (1, 1, 1, 1)).bool()
     acc = m
     for dr in (-1, 0, 1):
         for dc in (-1, 0, 1):
             if dr or dc:
-                acc = acc | p[1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
+                acc = acc | p[..., 1 + dr:1 + dr + h, 1 + dc:1 + dc + w]
     return acc
 
 
 def hysteresis_plain(strong: torch.Tensor, weak: torch.Tensor) -> torch.Tensor:
-    """Grow ``strong`` through ``weak`` to the fixpoint, one dilation a step."""
+    """Grow ``strong`` through ``weak`` to the fixpoint, one dilation a step.
+
+    A batch (N, H, W) grows all its planes together until none changes: a
+    plane at its fixpoint no longer moves, so each plane ends where it
+    would alone."""
     cur = strong
     while True:
         grown = dilate8(cur) & weak | cur
@@ -61,14 +71,15 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
                tile_rows: int | None = None) -> torch.Tensor:
     """Grow strong seeds through weak pixels (8-connectivity) to fixpoint.
 
-    ``strong``/``weak``: (H, W) bool on one device. CPU tensors take the
-    plain twin; CUDA tensors take the kernel: a fixed sequence of
-    :data:`LAUNCHES_PER_CALL` launches on the current stream, with no host
-    sync. ``tile_rows`` sets the kernel's tile height (the ``tile_rows`` of
-    the Pallas tiled kernel): small tiles force edge chains across many
-    tile borders.
+    ``strong``/``weak``: (H, W) or (N, H, W) bool on one device; the planes
+    of a batch are grown independently. CPU tensors take the plain twin;
+    CUDA tensors take the kernel: a fixed sequence of
+    :data:`LAUNCHES_PER_CALL` launches on the current stream for the whole
+    batch, with no host sync. ``tile_rows`` sets the kernel's tile height
+    (the ``tile_rows`` of the Pallas tiled kernel): small tiles force edge
+    chains across many tile borders.
     """
-    global launches
+    global launches, batched_launches
     if strong.device.type == "cpu" and weak.device.type == "cpu":
         return hysteresis_plain(strong, weak)
     if strong.device.type != "cuda" or weak.device != strong.device:
@@ -78,25 +89,32 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
     if strong.dtype != torch.bool or weak.dtype != torch.bool:
         raise TypeError(f"hysteresis: bool masks required, got "
                         f"{strong.dtype} and {weak.dtype}")
-    if strong.ndim != 2 or strong.shape != weak.shape:
+    if strong.ndim not in (2, 3) or strong.shape != weak.shape:
         raise ValueError(f"hysteresis: shapes {tuple(strong.shape)} and "
-                         f"{tuple(weak.shape)}; one (H, W) shape required")
+                         f"{tuple(weak.shape)}; one (H, W) or (N, H, W) "
+                         "shape required")
     tile_rows = DEFAULT_TILE_ROWS if tile_rows is None else int(tile_rows)
     if not 1 <= tile_rows <= MAX_TILE_ROWS:
         raise ValueError(f"tile_rows must be in [1, {MAX_TILE_ROWS}]")
-    h, w = strong.shape
-    if h * w >= 2**31 - 1:
-        raise ValueError(f"hysteresis: plane {h}x{w} exceeds int32 labels")
-    out = torch.empty((h, w), dtype=torch.uint8, device=strong.device)
-    if h == 0 or w == 0:
+    h, w = strong.shape[-2:]
+    n_planes = strong.shape[0] if strong.ndim == 3 else 1
+    # A label is a pixel's offset in the whole batch.
+    if n_planes * h * w >= 2**31 - 1:
+        raise ValueError(f"hysteresis: {n_planes} plane(s) of {h}x{w} "
+                         "exceed int32 labels")
+    out = torch.empty(strong.shape, dtype=torch.uint8, device=strong.device)
+    if out.numel() == 0:
         return out.view(torch.bool)
     strong_u8 = strong.contiguous().view(torch.uint8)
     weak_u8 = weak.contiguous().view(torch.uint8)
-    labels = torch.empty((h, w), dtype=torch.int32, device=strong.device)
+    labels = torch.empty(strong.shape, dtype=torch.int32,
+                         device=strong.device)
     err = _build.load().mg_hysteresis(
-        strong_u8.data_ptr(), weak_u8.data_ptr(), h, w, tile_rows,
+        strong_u8.data_ptr(), weak_u8.data_ptr(), n_planes, h, w, tile_rows,
         labels.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(strong.device).cuda_stream)
     launches += LAUNCHES_PER_CALL
+    if strong.ndim == 3:
+        batched_launches += LAUNCHES_PER_CALL
     _build.check(err, "mg_hysteresis")
     return out.view(torch.bool)

@@ -34,6 +34,8 @@ _COEFFS = tuple(8.0 / (np.pi**2 * k**2) for k in _HARMONICS)
 
 #: Kernel launches of :func:`ring_corr` since the count was last reset.
 launches = 0
+#: Those of them that calls on a batch (N, C, H, W) made.
+batched_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,43 +138,60 @@ _MAX_SMEM = 227 * 1024
 _CPU_UNFOLD_BYTES = 1 << 28
 
 
+# Planes of a batch that one float64 convolution takes on a card: bounds the
+# f64 copies of features and maps (1,568 padded chamber crops would hold
+# 4 GB of them at once).
+_PLAIN_BATCH_BYTES = 1 << 30
+
+
 def ring_corr_plain(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
     """float64 correlation of int8 values: every product and partial sum is
-    an integer below 2^53, so any algorithm gives the exact int32 result."""
+    an integer below 2^53, so any algorithm gives the exact int32 result.
+    ``feats``: (C, H, W) or a batch (N, C, H, W)."""
+    if feats.ndim == 3:
+        return ring_corr_plain(feats[None], weights)[0]
     n_r, c_in, k, _ = weights.dense.shape
     rad = k // 2
-    _, h, w = feats.shape
+    n, _, h, w = feats.shape
     wt = weights.dense.to(torch.float64)
-    fp = F.pad(feats.to(torch.float64), (rad, rad, rad, rad))
     rows = h
     if feats.device.type == "cpu":
         rows = max(1, _CPU_UNFOLD_BYTES // (c_in * k * k * max(w, 1) * 8))
-    out = torch.empty((n_r, h, w), dtype=torch.int32, device=feats.device)
-    for y0 in range(0, h, rows):
-        y1 = min(h, y0 + rows)
-        band = F.conv2d(fp[None, :, y0:y1 + 2 * rad], wt)[0]
-        out[:, y0:y1] = torch.round(band).to(torch.int32)
+    per_plane = 8 * (c_in * (h + 2 * rad) * (w + 2 * rad) + n_r * h * w)
+    planes = max(1, _PLAIN_BATCH_BYTES // max(per_plane, 1))
+    out = torch.empty((n, n_r, h, w), dtype=torch.int32, device=feats.device)
+    for n0 in range(0, n, planes):
+        fp = F.pad(feats[n0:n0 + planes].to(torch.float64),
+                   (rad, rad, rad, rad))
+        for y0 in range(0, h, rows):
+            y1 = min(h, y0 + rows)
+            band = F.conv2d(fp[:, :, y0:y1 + 2 * rad], wt)
+            out[n0:n0 + planes, :, y0:y1] = torch.round(band).to(torch.int32)
     return out
 
 
 def ring_corr(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
-    """Exact int8 ring correlation: (C, H, W) int8 features -> (n_radii, H,
-    W) int32, zero padded (SAME). CPU tensors take the plain twin; CUDA
+    """Exact int8 ring correlation, zero padded (SAME): (C, H, W) int8
+    features -> (n_radii, H, W) int32, or a batch (N, C, H, W) -> (N,
+    n_radii, H, W) in one launch. CPU tensors take the plain twin; CUDA
     tensors take the kernel, which needs C = 8."""
-    global launches
+    global launches, batched_launches
     if feats.device.type == "cpu" and weights.dense.device.type == "cpu":
         return ring_corr_plain(feats, weights)
+    batched = feats.ndim == 4
+    if feats.ndim == 3:
+        feats = feats[None]
     for name, t in (("table", weights.table), ("offsets", weights.offsets)):
         if t.device != feats.device or t.dtype != torch.int32:
             raise ValueError(f"ring_corr: {name} must be int32 on "
                              f"{feats.device}, got {t.dtype} on {t.device}")
     if feats.device.type != "cuda":
         raise ValueError(f"ring_corr: unsupported device {feats.device}")
-    if feats.dtype != torch.int8 or feats.ndim != 3:
-        raise TypeError(f"ring_corr: (C, H, W) int8 features required, got "
-                        f"{feats.dtype} {tuple(feats.shape)}")
+    if feats.dtype != torch.int8 or feats.ndim != 4:
+        raise TypeError("ring_corr: (C, H, W) or (N, C, H, W) int8 features "
+                        f"required, got {feats.dtype} {tuple(feats.shape)}")
     n_r, c_in, k, k2 = weights.dense.shape
-    if k != k2 or k % 2 == 0 or feats.shape[0] != c_in or c_in != 8:
+    if k != k2 or k % 2 == 0 or feats.shape[1] != c_in or c_in != 8:
         raise ValueError(f"ring_corr: kernel {tuple(weights.dense.shape)} "
                          f"does not fit features {tuple(feats.shape)} "
                          "(8 channels required)")
@@ -186,17 +205,21 @@ def ring_corr(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
     feats = feats.contiguous()
     table = weights.table.contiguous()
     offsets = weights.offsets.contiguous()
-    _, h, w = feats.shape
-    out = torch.empty((n_r, h, w), dtype=torch.int32, device=feats.device)
-    if h == 0 or w == 0:
-        return out
+    n, _, h, w = feats.shape
+    out = torch.empty((n, n_r, h, w), dtype=torch.int32, device=feats.device)
+    if out.numel() == 0:
+        return out if batched else out[0]
+    if n * ((w + 63) // 64) >= 2**31 or (h + 31) // 32 > 65535:
+        raise ValueError(f"ring_corr: {n} planes of {h}x{w} exceed the "
+                         "launch grid")
     err = lib.mg_ring_corr(
-        feats.data_ptr(), h, w, table.data_ptr(), offsets.data_ptr(), n_r,
+        feats.data_ptr(), n, h, w, table.data_ptr(), offsets.data_ptr(), n_r,
         n_pos, rad, out.data_ptr(),
         torch.cuda.current_stream(feats.device).cuda_stream)
     launches += 1
+    batched_launches += int(batched)
     _build.check(err, "mg_ring_corr")
-    return out
+    return out if batched else out[0]
 
 
 def _cs2_from_grads(dx, dy):
@@ -230,7 +253,8 @@ def alignment_features_q8(edges, dx, dy) -> torch.Tensor:
             feats.append(e * ck)
             feats.append(e * sk)
         ck, sk = fma_f32(ck, c1, -(sk * s1)), fma_f32(sk, c1, ck * s1)
-    return torch.round(torch.stack(feats) * 127.0).to(torch.int8)
+    # Channels before the plane: (8, H, W), or (N, 8, H, W) for a batch.
+    return torch.round(torch.stack(feats, dim=-3) * 127.0).to(torch.int8)
 
 
 def score_maps(edges, dx, dy, *, min_radius: int, max_radius: int):
@@ -239,7 +263,9 @@ def score_maps(edges, dx, dy, *, min_radius: int, max_radius: int):
     ``edges``/``dx``/``dy`` are the padded (Hp, Wp) planes (the caller pads
     by 2*max_radius); map [r, y, x] scores radius ``min_radius + r`` at
     padded position (y, x). int8 features, exact int32 correlation, then one
-    f32 multiply by ``scale / 127^2``.
+    f32 multiply by ``scale / 127^2``. A batch (N, Hp, Wp) gives (N,
+    n_radii, Hp, Wp) through one correlation, as the JAX package's
+    leading-batch ``score_maps`` does.
     """
     weights, dq = _cached_tables(int(min_radius), int(max_radius),
                                  str(edges.device))

@@ -1,5 +1,6 @@
-"""User-facing pipeline factories: ``beads``, ``mrbles``, their ``*_pipe``
-forms and their ``*_stream`` generators.
+"""User-facing pipeline factories: ``beads``, ``mrbles``,
+``microfluidic_chip``, their ``*_pipe`` forms and the ``*_stream``
+generators of the bead pipelines.
 
 The same parameters and defaults as ``magnify_tpu.registry``'s, plus
 ``device`` (default ``"cuda"``): the device the detector and the decoder run
@@ -10,8 +11,215 @@ from __future__ import annotations
 
 from magnify_tpu_torch.core.pipeline import Pipeline
 
-__all__ = ["beads", "beads_pipe", "beads_stream", "mrbles", "mrbles_pipe",
-           "mrbles_stream"]
+__all__ = ["CHIP_PRESETS", "beads", "beads_pipe", "beads_stream",
+           "microfluidic_chip", "microfluidic_chip_pipe", "mrbles",
+           "mrbles_pipe", "mrbles_stream"]
+
+# Chip-type presets: (row, column) pitch in pixels.
+CHIP_PRESETS = {
+    "minichip": (375 / 1.61, 400 / 1.61),
+    "pc": (406 / 3.22, 750 / 3.22),
+    "ps": (375 / 3.22, 655 / 3.22),
+}
+
+def microfluidic_chip_pipe(
+    shape=(8, 8),
+    pinlist=None,
+    blank=None,
+    overlap: int = 102,
+    rotation: int = 0,
+    row_dist: float = 375 / 1.61,
+    col_dist: float = 400 / 1.61,
+    chip_type=None,
+    min_button_diameter: int = 8,
+    max_button_diameter: int = 30,
+    chamber_diameter: int = 60,
+    top_chamber=None,
+    left_chamber=None,
+    low_edge_quantile: float = 0.1,
+    high_edge_quantile: float = 0.9,
+    num_iter: int = 5000000,
+    min_roundness: float = 0.2,
+    cluster_penalty: float = 50,
+    roi_length=None,
+    progress_bar: bool = False,
+    search_timestep=0,
+    search_channel=None,
+    roi_only: bool = False,
+    drop_tiles: bool = True,
+    interactive: bool = False,
+    detector: str = "auto",
+    device="cuda",
+) -> Pipeline:
+    """Build the button-finding pipeline for microfluidic chip images:
+    read -> standardize_format -> identify_buttons -> stitch -> rotate ->
+    find_buttons -> drop -> restore_format. ``rotate`` and ``find_buttons``
+    run on ``device``."""
+    if chip_type is not None:
+        if chip_type not in CHIP_PRESETS:
+            raise ValueError(
+                f"Invalid chip type: {chip_type}. Must be one of "
+                f"['pc', 'ps', 'minichip']"
+            )
+        row_dist, col_dist = CHIP_PRESETS[chip_type]
+
+    pipe = Pipeline("read")
+    pipe.add_pipe("standardize_format")
+    pipe.add_pipe("identify_buttons", shape=shape, pinlist=pinlist, blank=blank)
+    pipe.add_pipe("stitch", overlap=overlap)
+    pipe.add_pipe("rotate", rotation=rotation, device=device)
+    pipe.add_pipe(
+        "find_buttons",
+        row_dist=row_dist,
+        col_dist=col_dist,
+        min_button_diameter=min_button_diameter,
+        max_button_diameter=max_button_diameter,
+        chamber_diameter=chamber_diameter,
+        top_chamber=top_chamber,
+        left_chamber=left_chamber,
+        low_edge_quantile=low_edge_quantile,
+        high_edge_quantile=high_edge_quantile,
+        num_iter=num_iter,
+        min_roundness=min_roundness,
+        cluster_penalty=cluster_penalty,
+        roi_length=roi_length,
+        progress_bar=progress_bar,
+        search_timestep=search_timestep,
+        search_channel=search_channel,
+        interactive=interactive,
+        detector=detector,
+        device=device,
+    )
+    pipe.add_pipe("drop", roi_only=roi_only, drop_tiles=drop_tiles)
+    pipe.add_pipe("restore_format")
+    return pipe
+
+
+def microfluidic_chip(
+    data,
+    shape=(8, 8),
+    pinlist=None,
+    blank=None,
+    overlap: int = 102,
+    rotation: int = 0,
+    row_dist: float = 375 / 1.61,
+    col_dist: float = 400 / 1.61,
+    chip_type=None,
+    min_button_diameter: int = 8,
+    max_button_diameter: int = 30,
+    chamber_diameter: int = 60,
+    top_chamber=None,
+    left_chamber=None,
+    low_edge_quantile: float = 0.1,
+    high_edge_quantile: float = 0.9,
+    num_iter: int = 5000000,
+    min_roundness: float = 0.2,
+    cluster_penalty: float = 50,
+    roi_length=None,
+    progress_bar: bool = False,
+    search_timestep=0,
+    search_channel=None,
+    roi_only: bool = False,
+    drop_tiles: bool = True,
+    interactive: bool = False,
+    detector: str = "auto",
+    device="cuda",
+):
+    """Find buttons in microfluidic-chip images and return the standardized
+    dataset.
+
+    Parameters
+    ----------
+    data :
+        DataArray/Dataset, or a sequence of them (paths are not ported yet).
+    shape :
+        (rows, cols) of the button grid; every chamber is tagged
+        "default". Either ``shape`` or ``pinlist`` must be given.
+    pinlist :
+        CSV with an ``Indices`` column of 1-indexed "(col, row)" pairs and a
+        ``MutantID`` column of chamber names; ``blank`` values (default
+        ["", "blank", "BLANK"]) become the empty tag.
+    overlap :
+        Pixels to crop between adjacent tiles while stitching.
+    rotation :
+        Degrees to rotate the stitched image about its center.
+    row_dist, col_dist :
+        Pitch between button rows/columns in pixels.
+    chip_type :
+        Preset pitch: "minichip", "pc", or "ps" (overrides
+        row_dist/col_dist).
+    min_button_diameter, max_button_diameter :
+        Detection diameter bounds in pixels.
+    chamber_diameter :
+        Chamber diameter in pixels (sets the background annulus and the
+        center-clustering distance).
+    top_chamber, left_chamber :
+        Known pixel offset of the first chamber edge; when given, row/col
+        clustering uses the fixed geometry instead of the offset sweep.
+    low_edge_quantile, high_edge_quantile :
+        Gradient-magnitude quantiles for the Canny thresholds (0..1).
+    num_iter :
+        Accepted for parity with ``magnify_tpu.microfluidic_chip``; the
+        dense detector scores every candidate and ignores it.
+    min_roundness :
+        Minimum perimeter-alignment score for accepted buttons (0..1).
+    cluster_penalty :
+        Weight of the count-mismatch term in the row/col clustering cost.
+    roi_length :
+        ROI window edge length (default ``1.2 * chamber_diameter``).
+    progress_bar :
+        Show progress over timesteps.
+    search_timestep :
+        Timestep(s) to run detection on; others copy positions from the
+        nearest searched timestep before them (or the first after).
+    search_channel :
+        Channel(s) used for detection (default: all).
+    roi_only :
+        Return only the roi DataArray.
+    drop_tiles :
+        Remove the tile variable after stitching.
+    interactive :
+        Not ported yet; True raises.
+    detector :
+        "auto" or "dense" (both the dense detector); "ransac" raises.
+    device :
+        Torch device of the rotation and the button finder.
+
+    Returns
+    -------
+    Dataset (or list of Datasets, one per assay) with ``roi`` plus
+    ``fg``/``bg``/``x``/``y``/``tag``/``valid`` coordinates over
+    ``mark = (mark_row, mark_col)``.
+    """
+    return microfluidic_chip_pipe(
+        shape=shape,
+        pinlist=pinlist,
+        blank=blank,
+        overlap=overlap,
+        rotation=rotation,
+        row_dist=row_dist,
+        col_dist=col_dist,
+        chip_type=chip_type,
+        min_button_diameter=min_button_diameter,
+        max_button_diameter=max_button_diameter,
+        chamber_diameter=chamber_diameter,
+        top_chamber=top_chamber,
+        left_chamber=left_chamber,
+        low_edge_quantile=low_edge_quantile,
+        high_edge_quantile=high_edge_quantile,
+        num_iter=num_iter,
+        min_roundness=min_roundness,
+        cluster_penalty=cluster_penalty,
+        roi_length=roi_length,
+        progress_bar=progress_bar,
+        search_timestep=search_timestep,
+        search_channel=search_channel,
+        roi_only=roi_only,
+        drop_tiles=drop_tiles,
+        interactive=interactive,
+        detector=detector,
+        device=device,
+    )(data=data)
 
 
 def mrbles_pipe(

@@ -6,13 +6,16 @@ port's smoke frames, for checking the port where JAX is absent.
 Runs ``magnify_tpu.beads(detector="dense")`` with int8 score maps on the CPU
 for frame A (1024^2, 110 beads) and frame B (2 channels, 2 x 2 tiles of
 1024^2, overlap 102) and ``magnify_tpu.mrbles`` the same way for frame M
-(4 channels x 1024^2, 108 beads of 4 codes), as ``chip_smoke.py`` builds
-them, and stores for each the bead rows (y, x) in mark order and sha256
-digests of fg, bg and roi; for frame M also the decoded tags and ``ln_vol``.
+(4 channels x 1024^2, 108 beads of 4 codes) and
+``magnify_tpu.microfluidic_chip`` for frame C8 (8 x 8 chambers on 900^2) and
+its 2-channel, 2-timestep variant C8V, as ``chip_smoke.py`` builds them, and
+stores for each the mark rows (y, x) in mark order and sha256 digests of fg,
+bg and roi; for frame M also the decoded tags and ``ln_vol``, for the chip
+frames the chamber tags.
 The score-quantization mode is read once when magnify_tpu is imported, so
 this script sets it (and the detector) before that import, in its own
 process. Keys that the file already holds must come out unchanged: the
-script refuses to overwrite a file whose frames A or B would change.
+script refuses to overwrite a file whose frames A, B or M would change.
 """
 
 from __future__ import annotations
@@ -38,13 +41,16 @@ import magnify_tpu as mg  # noqa: E402
 def main() -> None:
     out = {}
     cases = (("A", chip_smoke.FRAME_A_KW), ("B", chip_smoke.FRAME_B_KW),
-             ("M", chip_smoke.FRAME_M_KW))
+             ("M", chip_smoke.FRAME_M_KW), ("C8", chip_smoke.FRAME_C8_KW),
+             ("C8V", chip_smoke.FRAME_C8_KW))
     for case, kw in cases:
         data = chip_smoke.as_dataarray(mg, case)
         if case == "M":
             spectra, codes = chip_smoke.mrbles_csvs()
             xp = mg.mrbles(data, spectra=spectra, codes=codes,
                            detector="dense", **kw)
+        elif case.startswith("C8"):
+            xp = mg.microfluidic_chip(data, detector="dense", **kw)
         else:
             xp = mg.beads(data, detector="dense", **kw)
         for key, val in chip_smoke.summarize(xp).items():
@@ -60,7 +66,9 @@ def main() -> None:
     if path.exists():
         old = np.load(path)
         for key in old.files:
-            if key[0] in "AB" and not np.array_equal(old[key], out[key]):
+            if key.split("_")[0] not in ("A", "B", "M"):
+                continue
+            if not np.array_equal(old[key], out[key]):
                 raise SystemExit(f"{key} would change; the golden file was "
                                  "not written")
     np.savez_compressed(path, **out)

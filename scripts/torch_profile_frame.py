@@ -13,8 +13,11 @@ frames A (1024^2) and B (1844^2 stitched plane, 1892^2 padded features):
    host wall time per call of the same loop, and for hysteresis at every
    tile height of 8, 16, 32, 64 and 128 rows;
 2. for 3 warm ``beads()`` frames of A and then of B, 3 warm ``mrbles()``
-   frames of M, and 2 warm runs each of ``beads_stream`` over 8 frames A and
-   ``mrbles_stream`` over 6 frames M (seeds 0-5): the wall time per frame,
+   frames of M, 2 warm runs each of ``beads_stream`` over 8 frames A and
+   ``mrbles_stream`` over 6 frames M (seeds 0-5), 3 warm
+   ``microfluidic_chip()`` calls on frame C8 (8 x 8 chambers, 900^2) and 2
+   on frame C ("pc", 56 x 28 chambers, 7,187 x 6,755, one searched and one
+   copied timestep): the wall time per frame,
    the device busy time (the union of all kernel intervals, whatever thread
    or stream launched them), the idle share, and the ten kernels with the
    most device time.
@@ -147,6 +150,15 @@ def main() -> int:
         lambda: list(mt.mrbles_stream(frames_m, spectra=spectra, codes=codes,
                                       device=dev, **cs.FRAME_M_KW)),
         reps=2, frames=6)
+    data_c8 = cs.as_dataarray(mt, "C8")
+    frame_profile("microfluidic_chip frame C8",
+                  lambda: mt.microfluidic_chip(data_c8, device=dev,
+                                               **cs.FRAME_C8_KW))
+    data_c = cs.as_dataarray(mt, "C")
+    frame_profile("microfluidic_chip frame C",
+                  lambda: mt.microfluidic_chip(
+                      data_c, pinlist=cs.frame_c_pinlist(), device=dev,
+                      **cs.FRAME_C_KW), reps=2)
     return 0
 
 

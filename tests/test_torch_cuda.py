@@ -3,8 +3,9 @@
 
 Each kernel against its plain twin, bit for bit, at small shapes that
 stress the tiling (tile borders, ragged edges, chains across many tiles);
-``beads`` and ``mrbles`` with ``device="cuda"`` against ``device="cpu"`` on
-the end-to-end fixtures of test_torch_slice; the decode's device stages
+``beads``, ``mrbles`` and ``microfluidic_chip`` with ``device="cuda"``
+against ``device="cpu"`` on the end-to-end fixtures of test_torch_slice and
+test_torch_chip; the decode's device stages
 (masked reductions, lattice fit, EM, ``identify_mrbles``) against the CPU;
 and the frame streams against the single-frame calls. Without a CUDA device
 every test skips. On a machine with one (and no JAX), run:
@@ -117,6 +118,57 @@ def test_ring_corr_kernel_matches_plain(cuda, radii, shape):
     assert torch.equal(got, tscore.ring_corr_plain(feats, weights))
 
 
+@pytest.mark.parametrize("shape,tile_rows", [((7, 40, 17), None),
+                                             ((64, 72, 72), None),
+                                             ((5, 33, 130), 8),
+                                             ((3, 100, 150), 48),
+                                             ((9, 5, 300), None),
+                                             ((1, 64, 64), None)])
+def test_hysteresis_kernel_batch_matches_plain(cuda, shape, tile_rows):
+    """A batch of planes in the launches of one plane, each plane grown on
+    its own: widths below the 128-column tile and no multiple of 4, heights
+    below the tile's rows."""
+    s, w = (torch.as_tensor(a).to(cuda) for a in _masks(2, shape))
+    before = thyst.launches
+    got = thyst.hysteresis(s, w, tile_rows=tile_rows)
+    assert thyst.launches == before + thyst.LAUNCHES_PER_CALL
+    assert torch.equal(got, thyst.hysteresis_plain(s, w))
+    for k in (0, shape[0] - 1):
+        assert torch.equal(got[k], thyst.hysteresis(s[k], w[k]))
+
+
+def test_hysteresis_kernel_batch_keeps_planes_apart(cuda):
+    """Plane k ends in a strong row and plane k + 1 starts in a weak row:
+    consecutive in memory, they must not join."""
+    strong = np.zeros((4, 24, 72), bool)
+    weak = np.zeros_like(strong)
+    strong[0::2, -1, :] = True
+    weak[0::2, -1, :] = True
+    weak[1::2, 0:3, :] = True
+    s, w = torch.as_tensor(strong).to(cuda), torch.as_tensor(weak).to(cuda)
+    got = thyst.hysteresis(s, w)
+    assert torch.equal(got, thyst.hysteresis_plain(s, w))
+    assert not bool(got[1::2].any()) and bool(got[0::2, -1].all())
+
+
+@pytest.mark.parametrize("radii,shape", [((4, 15), (64, 8, 132, 132)),
+                                         ((4, 15), (3, 8, 131, 133)),
+                                         ((8, 16), (9, 8, 136, 136)),
+                                         ((5, 10), (7, 8, 80, 61)),
+                                         ((2, 3), (1, 8, 33, 32))])
+def test_ring_corr_kernel_batch_matches_plain(cuda, radii, shape):
+    rng = np.random.default_rng(4)
+    feats = torch.as_tensor(
+        rng.integers(-127, 128, shape).astype(np.int8)).to(cuda)
+    weights = tscore.ring_weights(tscore._ring_conv_kernel_q8(*radii)[0],
+                                  cuda)
+    before = tscore.launches
+    got = tscore.ring_corr(feats, weights)
+    assert tscore.launches == before + 1
+    assert torch.equal(got, tscore.ring_corr_plain(feats, weights))
+    assert torch.equal(got[-1], tscore.ring_corr(feats[-1], weights))
+
+
 def test_wrappers_check_types(cuda):
     with pytest.raises(TypeError):
         thyst.hysteresis(torch.zeros((8, 8), device=cuda),
@@ -152,6 +204,45 @@ def test_mrbles_cuda_matches_cpu(cuda):
                                        err_msg=key)
         else:
             np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["2x2", "3x3_blanks", "3x5", "2ch2t",
+                                  "fixed"])
+def test_chip_cuda_matches_cpu(cuda, case):
+    """Every variable equal, the f32 grid intersections of blank chambers
+    included: the grid fit's sums are short, and where they differ in the
+    last bits the test's bound is that of the CPU comparison with the JAX
+    package."""
+    import magnify_tpu_torch as mt
+    from test_torch_chip import GRID_ATOL, run_case
+    from test_torch_slice import flatten
+
+    before = thyst.launches, tscore.launches
+    got = flatten(run_case(mt, case, device="cuda"), case)
+    n_search = 1
+    # Per search channel: detection + the whole refinement batch.
+    assert thyst.launches - before[0] == 2 * n_search * thyst.LAUNCHES_PER_CALL
+    assert tscore.launches - before[1] == 2 * n_search
+    want = flatten(run_case(mt, case, device="cpu"), case)
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        if key in (f"{case}/x", f"{case}/y"):
+            np.testing.assert_allclose(got[key], val, rtol=0, atol=GRID_ATOL,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+def test_detect_rois_dense_cuda_matches_cpu(cuda):
+    from magnify_tpu_torch.ops import detect as tdetect
+    from test_torch_chip import ROI_ARGS, ROI_KW, roi_batches
+
+    for rois in roi_batches().values():
+        t = torch.as_tensor(rois.astype(np.int32))
+        want = tdetect.detect_rois_dense(t, *ROI_ARGS, **ROI_KW)
+        got = tdetect.detect_rois_dense(t.to(cuda), *ROI_ARGS, **ROI_KW)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
 
 
 def test_reductions_on_the_card_match_the_twins(cuda):

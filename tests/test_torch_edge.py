@@ -217,3 +217,89 @@ def test_hysteresis_component_form_matches_pallas_and_plain(case):
                                       err_msg=f"tile_rows={tile_rows}")
     np.testing.assert_array_equal(
         want, thyst.hysteresis_plain(_t(strong), _t(weak)).numpy())
+
+
+# ----------------------------------------------------------------------
+# A batch of planes (the chip path's per-chamber crops)
+# ----------------------------------------------------------------------
+
+def _roi_batch():
+    """Five 48 x 52 uint16 crops: buttons on noise, a dim one, a constant
+    plane (peak 0 after the min is taken) and pure noise."""
+    rng = np.random.default_rng(21)
+    rois = rng.normal(300, 12, (5, 48, 52)).astype(np.uint16)
+    rois[0] += draw_beads((48, 52), [[24, 26]], diameters=14)
+    rois[1] += draw_beads((48, 52), [[20, 30]], diameters=18) // 8
+    rois[2] += draw_beads((48, 52), [[30, 14], [12, 40]], diameters=10)
+    rois[3] = 77
+    return rois
+
+
+@pytest.mark.parametrize("normalized", [False, True])
+def test_batched_edge_pipeline_matches_per_plane_and_vmap(normalized):
+    """(N, H, W) through the port == the port plane by plane == the JAX
+    package under ``jax.vmap`` (as ``_detect_rois_dense`` runs it), with
+    per-plane normalization and per-plane quantiles. Exact."""
+    rois = _roi_batch()
+    if normalized:
+        rois = tdetect.normalize_planes_u8(rois)
+    want = jax.jit(jax.vmap(lambda x: jedge.edge_pipeline(
+        x, 0.1, 0.95, normalized=normalized)[:3]))(
+            jnp.asarray(rois.astype(np.float32)))
+    got = tedge.edge_pipeline(_t(rois.astype(np.float32)), 0.1, 0.95,
+                              normalized=normalized)
+    for k in range(len(rois)):
+        one = tedge.edge_pipeline(_t(rois[k].astype(np.float32)), 0.1, 0.95,
+                                  normalized=normalized)
+        for a, b in zip(got, one):
+            assert torch.equal(a[k], b)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    assert got[0][0].sum() > 0 and got[0][3].sum() == 0
+
+
+def test_normalize_to_u8_matches_per_plane():
+    rois = _roi_batch()
+    want = jax.jit(jax.vmap(jedge.normalize_to_u8))(jnp.asarray(rois))
+    got = tedge.normalize_to_u8(_t(rois.astype(np.float32)))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), tdetect.normalize_planes_u8(rois).astype(np.float32))
+    assert torch.equal(tedge.normalize_to_u8(_t(rois[1].astype(np.float32))),
+                       got[1])
+
+
+def test_batched_quantiles_are_per_plane():
+    rng = np.random.default_rng(4)
+    vals = rng.normal(0, 50, (6, 31, 17)).astype(np.float32)
+    vals[2] = np.round(vals[2] / 40)  # many ties
+    got = tedge.histogram_quantiles(_t(vals), QS, batched=True)
+    assert got.shape == (2, 6)
+    for k in range(6):
+        want = _jax_quantiles(jnp.asarray(vals[k]), jnp.asarray(QS))
+        np.testing.assert_array_equal(np.asarray(want), got[:, k].numpy())
+        assert torch.equal(tedge.histogram_quantiles(_t(vals[k]), QS),
+                           got[:, k])
+
+
+def test_hysteresis_plain_batch_grows_planes_apart():
+    """The batched plain twin == plane by plane == the XLA dilate loop under
+    vmap, on widths that are no multiple of 4 or 128; and a batch whose
+    planes would join if rows ran on from one plane into the next."""
+    rng = np.random.default_rng(8)
+    strong = rng.random((6, 40, 72)) < 0.01
+    weak = strong | (rng.random((6, 40, 72)) < 0.4)
+    got = thyst.hysteresis(_t(strong), _t(weak))
+    want = jax.jit(jax.vmap(_xla_fixpoint))(jnp.asarray(strong),
+                                            jnp.asarray(weak))
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    for k in range(6):
+        assert torch.equal(got[k], thyst.hysteresis_plain(_t(strong[k]),
+                                                          _t(weak[k])))
+    strong = np.zeros((4, 24, 17), bool)
+    weak = np.zeros_like(strong)
+    strong[0::2, -1, :] = True
+    weak[0::2, -1, :] = True
+    weak[1::2, 0:3, :] = True
+    got = thyst.hysteresis(_t(strong), _t(weak)).numpy()
+    assert not got[1::2].any() and got[0::2, -1].all()

@@ -41,12 +41,16 @@ def test_import_loads_neither_jax_nor_magnify_tpu():
             "import magnify_tpu_torch.components.identify\n"
             "import magnify_tpu_torch.ops.reduce\n"
             "import magnify_tpu_torch.parallel.streaming\n"
+            "import magnify_tpu_torch.ops.gridfit\n"
+            "import magnify_tpu_torch.components.filter\n"
+            "import magnify_tpu_torch.diagnostics\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu',\n"
             "                                    'pandas'))\n"
             "assert not bad, bad\n"
             "for name in ('mrbles', 'mrbles_pipe', 'beads_stream',\n"
-            "             'mrbles_stream', 'parallel'):\n"
+            "             'mrbles_stream', 'parallel', 'microfluidic_chip',\n"
+            "             'microfluidic_chip_pipe'):\n"
             "    assert name in magnify_tpu_torch.__all__, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

@@ -151,3 +151,52 @@ def test_position_table_evaluates_to_ring_corr_plain(radii):
                                axes=1)
     want = tscore.ring_corr_plain(_t(feats), tscore.ring_weights(q, "cpu"))
     np.testing.assert_array_equal(got, want.numpy())
+
+
+# ----------------------------------------------------------------------
+# A batch of planes and the chip's radii
+# ----------------------------------------------------------------------
+
+def test_batched_score_maps_match_per_plane_and_jax():
+    """(N, Hp, Wp) through one correlation == plane by plane == the JAX
+    package's leading-batch ``score_maps`` (int8, unfolded). Exact."""
+    rng = np.random.default_rng(13)
+    n, h, w = 4, 40, 44
+    pad = 2 * MAX_R
+    edges = np.zeros((n, h + 2 * pad, w + 2 * pad), bool)
+    dx = np.zeros(edges.shape, np.float32)
+    dy = np.zeros(edges.shape, np.float32)
+    edges[:, pad:-pad, pad:-pad] = rng.random((n, h, w)) < 0.15
+    dx[:, pad:-pad, pad:-pad] = rng.integers(-4080, 4081, (n, h, w))
+    dy[:, pad:-pad, pad:-pad] = rng.integers(-4080, 4081, (n, h, w))
+    edges[2] = False  # a plane without edges scores 0 everywhere
+    want = np.asarray(_jax_maps(edges, dx, dy))
+    got = tscore.score_maps(_t(edges), _t(dx), _t(dy), min_radius=MIN_R,
+                            max_radius=MAX_R)
+    assert got.shape == (n, MAX_R - MIN_R + 1) + edges.shape[1:]
+    np.testing.assert_array_equal(want, got.numpy())
+    for k in range(n):
+        one = tscore.score_maps(_t(edges[k]), _t(dx[k]), _t(dy[k]),
+                                min_radius=MIN_R, max_radius=MAX_R)
+        assert torch.equal(one, got[k])
+    assert not got[2].any()
+    feats = tscore.alignment_features_q8(_t(edges), _t(dx), _t(dy))
+    assert feats.shape == (n, 8) + edges.shape[1:]
+
+
+@pytest.mark.parametrize("radii,n_pos", [((4, 15), 668), ((8, 16), 628)])
+def test_chip_radii_fit_the_kernel(radii, n_pos):
+    """The position table at the chip's radii (default diameters 8-30 give
+    radii 4-15; the 8 x 8 parity frame's 16-32 give 8-16): its size, the
+    int32 exactness bound 127 * sum|w| < 2^24 per radius, no position shared
+    by two radii, and the kernel's shared memory (position entries plus a
+    (32 + 2 halo) x (64 + 2 halo) tile of 8-byte pixels, halo 16) under one
+    CTA's 227 KB."""
+    q, _ = tscore._ring_conv_kernel_q8(*radii)
+    table, offsets = tscore.pack_positions(q)
+    assert offsets[-1] == len(table) == n_pos
+    assert len(set(table[:, 0].tolist())) == len(table)
+    assert 127 * np.abs(q.astype(np.int64)).sum(axis=(1, 2, 3)).max() < 2**24
+    assert radii[1] <= 16
+    assert 16 * n_pos + 8 * (32 + 32) * (64 + 32) <= tscore._MAX_SMEM
+    np.testing.assert_array_equal(_unpack(table, offsets, q.shape), q)
