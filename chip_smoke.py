@@ -14,7 +14,13 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    frame B's stitched plane (1844^2), on random masks at 2048^2 and 4096^2,
    with strong pixels outside the weak mask, and on a serpentine chain
    across many small tiles; the int8 ring correlation on the padded
-   features of frames A and B (8 x 1072^2, 8 x 1892^2; radii 8-12).
+   features of frames A and B (8 x 1072^2, 8 x 1892^2; radii 8-12); the
+   RANSAC perimeter scorer on every input the RANSAC main paths give it,
+   taken from one ``detector="ransac"`` run of each at 5,000,000 proposals:
+   frame A's unique proposals (radii 8-12, L = 68 perimeter positions), and
+   for frames C8 and C the whole-plane grid search, the chamber batch
+   (64 crops of 72^2 at radii 8-16, at most 4,096 uniques each; 1,568 crops
+   at radii 4-15, at most 3,188) and its 27-neighbour hill-climb.
    Batched: hysteresis on the Canny masks of the chamber crops of frame C8
    (64 x 72^2) and frame C (1,568 x 72^2), on random (N, H, W) masks with
    W in {17, 72, 130} and on a batch whose planes would join if the kernel
@@ -26,7 +32,9 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    and computes each kernel's bound from the bytes it must move and the
    operations it must do;
 3. main paths, each driven with the kernels' launch counts set to 0 just
-   before and read just after; every path must have launched both kernels:
+   before and read just after; every dense path must have launched
+   hysteresis and ring_corr, every RANSAC path hysteresis and
+   perimeter_score:
 
    * ``beads`` on frame A (1024^2, 110 beads) and frame B (2 channels,
      2 x 2 tiles of 1024^2, overlap 102, stitched to 1844^2) on ``cuda``;
@@ -55,6 +63,14 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
      was drawn, tags as the pinlist says; prints found / expected, the warm
      wall time, ``last_chip_timings`` and the peak of allocated device
      memory;
+   * ``detector="ransac"`` at the default ``num_iter`` (5,000,000):
+     ``beads`` on frame A (110/110) and ``microfluidic_chip`` on frame C8
+     (64/64), both equal to the golden file's RANSAC entries (``RA``,
+     ``RC8``); ``beads_stream`` over 3 frames A, each equal to the
+     single-frame call; ``microfluidic_chip`` on frame C (every non-blank
+     button within 1 px, the warm wall time, the unique proposals and the
+     peak device memory); ms per frame beside the dense detector's on the
+     same frame;
 4. decode at device scale: ``identify_mrbles`` alone on 8,192 marks x 5
    channels x 32^2 ROIs over the 24-code panel; tags on ``cuda`` must equal
    tags on ``cpu``; prints the stage times on both;
@@ -63,7 +79,9 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    ``ms``/``plain_ms``/``bound_ms``/``bound_share``/``library_ms`` at frame
    A's shapes and the same keys with ``_frame_b`` at frame B's,
    ``bound_by``, ``max_abs_err``; the batched entries have the same keys
-   with ``_rois_c8`` and ``_rois_c``) and, last, one JSON line
+   with ``_rois_c8`` and ``_rois_c``; perimeter_score's record has them for
+   each of its inputs above, and its batched entry has frame C's chamber
+   batch under the plain keys) and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits nonzero and prints no result.
@@ -78,6 +96,7 @@ script imports them from here.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import hashlib
 import io
@@ -401,13 +420,15 @@ def _event_once_ms(fn) -> float:
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
 
 
-def _bound(n_bytes: int, n_ops: int):
-    """Least time (ms) for moving ``n_bytes`` once and doing ``n_ops`` int8
-    operations, and which of the two sets it."""
+def _bound(n_bytes: int, n_ops: int, ops_per_s: float = INT8_OPS_PER_S):
+    """Least time (ms) for moving ``n_bytes`` once and doing ``n_ops``
+    operations at ``ops_per_s`` (int8 unless said), and which of the two
+    sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT8_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -667,6 +688,168 @@ def _ring_corr_record(dev, feats_ab, roi_feats) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def spy(module, name: str, wrap):
+    """Within the block ``module.<name>`` is ``wrap(original)``. The
+    scorer check takes its inputs from the main path's own calls this way,
+    and ``scripts/torch_profile_frame.py`` times the RANSAC stages."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _scorer_calls(run) -> list:
+    """The arguments of every ``score_circles`` call that ``ops.detect``
+    makes in ``run()``, in order, each a dict of its parameters."""
+    import inspect
+
+    from magnify_tpu_torch.ops import detect, score
+
+    sig = inspect.signature(score.score_circles)
+    calls = []
+
+    def wrap(real):
+        def call(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            calls.append(dict(bound.arguments))
+            return real(*args, **kw)
+        return call
+
+    with spy(detect, "score_circles", wrap):
+        run()
+    return calls
+
+
+def _perimeter_work(grad_angles, edges, circles, valid, plane,
+                    max_radius) -> tuple:
+    """What the scorer must touch for these inputs: the valid circles, the
+    edge pixels on their perimeters (where it does its float32 arithmetic),
+    the distinct pixels on their perimeters (whose edge flag it reads) and
+    the distinct edge pixels among them (whose angle it reads)."""
+    import torch
+
+    from magnify_tpu_torch.ops import score
+
+    offsets, lengths, _e = score._perimeter_tensors(max_radius,
+                                                    str(circles.device))
+    c = circles.to(torch.int64)
+    r = torch.clamp(c[:, 2], 0, max_radius)
+    hp, wp = edges.shape[-2:]
+    base = 0 if plane is None else plane.to(torch.int64) * (hp * wp)
+    flat = edges.reshape(-1)
+    live = (torch.ones_like(r, dtype=torch.bool) if valid is None
+            else valid.to(torch.bool))
+    seen = torch.zeros_like(flat)
+    hits = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
+    for p in range(offsets.shape[1]):
+        idx = base + score._pixel_index(c, offsets, r, p, hp, wp)
+        on = live & (p < lengths[r])
+        seen[idx[on]] = True
+        hits += (flat[idx] & on).to(torch.int64)
+    return (int(live.sum()), int(hits.sum()), int(seen.sum()),
+            int((seen & flat).sum()))
+
+
+# The scorer calls of each RANSAC main path, in the order it makes them.
+SCORER_CALLS = {
+    "A": (("", "frame A's whole plane"),),
+    "C8": (("_plane_c8", "frame C8's whole plane"),
+           ("_rois_c8", "frame C8's chamber batch"),
+           ("_climb_c8", "frame C8's hill-climb")),
+    "C": (("_plane_c", "frame C's whole plane"),
+          ("_rois_c", "frame C's chamber batch"),
+          ("_climb_c", "frame C's hill-climb")),
+}
+
+
+def _perimeter_record(dev) -> dict:
+    """perimeter_score against score_circles_plain on the card, bit for
+    bit, on every input the RANSAC main paths give it: ``beads`` on frame
+    A and ``microfluidic_chip`` on frames C8 and C at the default
+    ``num_iter``, their scorer calls taken from one run of each (its
+    launches are not a main path's). Each timed with CUDA events beside the
+    twin; its bound from the bytes it must move (valid flags and scores of
+    every circle, the valid circles and their plane indices, the edge flag
+    of each distinct perimeter pixel and the angle of each distinct edge
+    pixel among them, each once) and its float32 operations (6 at each edge
+    pixel of a perimeter, one division per valid circle)."""
+    import torch
+
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.ops import score
+
+    kw = dict(detector="ransac", device=dev)
+    runs = {
+        "A": lambda: mt.beads(as_dataarray(mt, "A"), **kw, **FRAME_A_KW),
+        "C8": lambda: mt.microfluidic_chip(as_dataarray(mt, "C8"), **kw,
+                                           **FRAME_C8_KW),
+        "C": lambda: mt.microfluidic_chip(as_dataarray(mt, "C"),
+                                          pinlist=frame_c_pinlist(), **kw,
+                                          **FRAME_C_KW),
+    }
+    rec = {"name": "perimeter_score", "route": "cuda",
+           "source": "magnify_tpu_torch/csrc/perimeter_score.cu",
+           "replaces": "magnify_tpu/ops/score.py:671",
+           "launches_per_call": 1, "library_ms": None}
+    err = 0.0
+    for frame, run in runs.items():
+        calls = _scorer_calls(run)
+        if len(calls) != len(SCORER_CALLS[frame]):
+            raise AssertionError(f"perimeter_score: frame {frame} made "
+                                 f"{len(calls)} scorer calls")
+        for (tag, name), args in zip(SCORER_CALLS[frame], calls):
+            circles, plane = args["circles"], args["plane"]
+            n = circles.shape[0]
+            max_r = args["max_radius"]
+            n_pos = score._perimeter_tensors(max_r, str(dev))[0].shape[1]
+            before = score.perimeter_launches
+            got = score.score_circles(**args)
+            if score.perimeter_launches != before + 1:
+                raise AssertionError("perimeter_score: one launch per call "
+                                     "expected")
+            want = score.score_circles_plain(**args)
+            torch.cuda.synchronize()
+            bits_got, bits_want = got.view(torch.int32), want.view(torch.int32)
+            if not torch.equal(bits_got, bits_want):
+                bad = int((bits_got != bits_want).sum())
+                raise AssertionError(f"perimeter_score != plain twin on "
+                                     f"{name}: {bad} of {n} scores differ")
+            fin = torch.isfinite(want)
+            if bool(fin.any()):
+                err = max(err, float((got[fin] - want[fin]).abs().max()))
+            k_ms = _event_ms(lambda: score.score_circles(**args), 50)
+            p_ms = _event_ms(lambda: score.score_circles_plain(**args), 3)
+            angles = args["grad_angles"]
+            n_valid, hits, touched, touched_edges = _perimeter_work(
+                angles, args["edges"], circles, args["valid"], plane, max_r)
+            n_bytes = (n * (4 + (args["valid"] is not None))
+                       + n_valid * (12 + 4 * (plane is not None))
+                       + touched + 4 * touched_edges)
+            bound_ms, bound_by = _bound(n_bytes, 6 * hits + n_valid,
+                                        F32_OPS_PER_S)
+            rec.update({f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
+                        f"bound_ms{tag}": bound_ms, "bound_by": bound_by,
+                        f"bound_share{tag}": bound_ms / k_ms,
+                        f"n_circles{tag}": n, f"L{tag}": n_pos})
+            n_planes = 1 if plane is None else angles.shape[0]
+            _say(f"perimeter_score == plain on {name}: N = {n} circles "
+                 f"({n_valid} valid) on {n_planes} plane(s) of "
+                 f"{tuple(angles.shape[-2:])} (pad {2 * max_r} included), "
+                 f"L = {n_pos} positions, {hits} edge hits, {touched} "
+                 f"perimeter pixels ({touched_edges} edges); kernel "
+                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} "
+                 f"ms ({bound_by}), share {bound_ms / k_ms:.4f}; no single "
+                 "PyTorch call computes it")
+            del got, want
+        del calls
+    rec["max_abs_err"] = err
+    return rec
+
+
 def kernel_phase(dev) -> list:
     strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
     strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
@@ -682,7 +865,8 @@ def kernel_phase(dev) -> list:
     return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b)),
                                {"C8": (s8, w8), "C": (sc, wc)}),
             _ring_corr_record(dev, (feats_a, feats_b),
-                              {"C8": (f8, (8, 16)), "C": (fc, (4, 15))})]
+                              {"C8": (f8, (8, 16)), "C": (fc, (4, 15))}),
+            _perimeter_record(dev)]
 
 
 def _check_case(case: str, xp, golden) -> None:
@@ -733,19 +917,29 @@ def _assert_same_frame(what: str, out, ref) -> None:
                                  "single-frame call")
 
 
+DENSE = ("hysteresis", "ring_corr")
+RANSAC = ("hysteresis", "perimeter_score")
+
+
 class _Launches:
     """The kernels' launch counts over one path: zeroed on entry, read and
-    checked on exit."""
+    checked on exit: each kernel of ``kernels`` must have launched."""
 
-    def __init__(self, by_path: dict, path: str):
+    def __init__(self, by_path: dict, path: str, kernels=DENSE):
         from magnify_tpu_torch.ops import hysteresis, score
 
-        self.mods = {"hysteresis": hysteresis, "ring_corr": score}
-        self.by_path, self.path = by_path, path
+        # name: (module, its launch counter, its batched-launch counter)
+        self.counters = {
+            "hysteresis": (hysteresis, "launches", "batched_launches"),
+            "ring_corr": (score, "launches", "batched_launches"),
+            "perimeter_score": (score, "perimeter_launches",
+                                "perimeter_batched_launches")}
+        self.by_path, self.path, self.kernels = by_path, path, kernels
 
     def __enter__(self):
-        for mod in self.mods.values():
-            mod.launches = mod.batched_launches = 0
+        for mod, total, batched in self.counters.values():
+            setattr(mod, total, 0)
+            setattr(mod, batched, 0)
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -754,13 +948,14 @@ class _Launches:
         import torch
 
         torch.cuda.synchronize()
-        counts = {name: mod.launches for name, mod in self.mods.items()}
-        batched = {f"{name}_batched": mod.batched_launches
-                   for name, mod in self.mods.items()}
+        counts = {name: getattr(mod, total)
+                  for name, (mod, total, _b) in self.counters.items()}
+        batched = {f"{name}_batched": getattr(mod, b)
+                   for name, (mod, _t, b) in self.counters.items()}
         _say(f"kernel launches in {self.path}: {counts}, of them on a "
              f"batch of planes {batched}")
-        for name, n in counts.items():
-            if n <= 0:
+        for name in self.kernels:
+            if counts[name] <= 0:
                 raise AssertionError(f"{self.path} never launched {name}")
         self.by_path[self.path] = counts
         self.by_path.setdefault("_batched", {})[self.path] = batched
@@ -887,7 +1082,8 @@ def main_path(records: list, dev) -> None:
     _say(f"frame M: {ms_stream_m:.3f} ms per frame streamed (6 frames, "
          f"depth 2, median of 3) vs {ms_serial_m:.3f} ms serial")
 
-    chip_paths(mt, dev, golden, by_path)
+    chip_ms = chip_paths(mt, dev, golden, by_path)
+    ransac_paths(mt, dev, golden, by_path, dict(chip_ms, A=ms_a))
 
     batched_by_path = by_path.pop("_batched")
     for rec in list(records):
@@ -904,33 +1100,36 @@ def main_path(records: list, dev) -> None:
         launches = {path: counts[name]
                     for path, counts in batched_by_path.items()
                     if counts[name]}
-        if not launches or set(launches) - {"chip_c8", "chip_c8_2ch2t",
-                                            "chip_c"}:
+        if not launches or set(launches) - {
+                "chip_c8", "chip_c8_2ch2t", "chip_c", "chip_c8 ransac",
+                "chip_c ransac"}:
             raise AssertionError(f"{name}: launched in {sorted(launches)}")
         brec = {k: rec[k] for k in ("route", "source", "replaces",
                                     "launches_per_call", "max_abs_err",
                                     "bound_by")}
         brec.update(name=name, launches=sum(launches.values()),
                     launches_by_path=launches)
-        for key in ("ms", "plain_ms", "bound_ms", "bound_share",
-                    "library_ms"):
-            brec[key] = rec.get(f"{key}_rois_c")
-            brec[f"{key}_rois_c8"] = rec.get(f"{key}_rois_c8")
+        for key in ("ms", "plain_ms", "bound_ms", "bound_share"):
+            brec[key] = rec[f"{key}_rois_c"]
+            brec[f"{key}_rois_c8"] = rec[f"{key}_rois_c8"]
+        brec["library_ms"] = rec.get("library_ms_rois_c")
+        brec["library_ms_rois_c8"] = rec.get("library_ms_rois_c8")
         records.append(brec)
         _say(f"{name}: {brec['launches']} launches in the chip paths "
              f"{launches}")
 
 
-def chip_paths(mt, dev, golden, by_path: dict) -> None:
+def chip_paths(mt, dev, golden, by_path: dict) -> dict:
     """``microfluidic_chip`` on frames C8, C8V (golden, cuda == cpu) and C
-    (truth)."""
+    (truth). Returns the warm ms of frames C8 and C."""
     import torch
 
     from magnify_tpu_torch.components import find
     from magnify_tpu_torch.ops import hysteresis as hyst
 
     # --- C8 and its variant: the golden file and the CPU -----------------
-    per_channel = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 2}
+    per_channel = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 2,
+                   "perimeter_score": 0}
     for case, path, n_search in (("C8", "chip_c8", 1),
                                  ("C8V", "chip_c8_2ch2t", 2)):
         data = as_dataarray(mt, case)
@@ -966,7 +1165,6 @@ def chip_paths(mt, dev, golden, by_path: dict) -> None:
          f"last_chip_timings {json.dumps(find.last_chip_timings)}")
 
     # --- C: the full-size chip against where the buttons were drawn ----
-    stack, centers, blank = frame_c()
     data_c = as_dataarray(mt, "C")
 
     def run_c():
@@ -980,38 +1178,141 @@ def chip_paths(mt, dev, golden, by_path: dict) -> None:
         raise AssertionError(f"chip_c launches {by_path['chip_c']} != "
                              f"{per_channel}")
     peak = torch.cuda.max_memory_allocated()
-    xc = xc.transpose("mark_row", "mark_col", ...)
-    y, x = np.asarray(xc.y.values), np.asarray(xc.x.values)  # (56, 28, 2)
-    tag = np.asarray(xc.tag.values)
-    if y.shape != C_GRID + (2,) or not (np.isfinite(y).all()
-                                        and np.isfinite(x).all()):
-        raise AssertionError(f"frame C: x/y of shape {y.shape} or not finite")
-    if not np.array_equal(tag == "", blank) or not bool(
-            np.asarray(xc.valid.values).all()):
-        raise AssertionError("frame C: tag/valid differ from the pinlist")
-    err = np.maximum(np.abs(y - centers[..., :1]), np.abs(x - centers[..., 1:]))
-    ok = (err <= 1).all(axis=-1)
-    n_expected = int((~blank).sum())
-    n_found = int(ok[~blank].sum())
-    _say(f"frame C: image {stack.shape[1:]}, {n_found}/{n_expected} "
-         f"non-blank buttons within 1 px of where they were drawn "
-         f"(max error {err[~blank].max():.1f} px), {int(blank.sum())} blank "
-         f"chambers, roi {xc['roi'].shape}")
-    if n_found != n_expected:
-        raise AssertionError(f"frame C: {n_found}/{n_expected} buttons")
-    fg = np.asarray(xc.fg.transpose("mark_row", "mark_col", ...).values)
-    radii = np.sqrt(fg.reshape(C_GRID + (2, -1))[..., 0, :].sum(-1) / np.pi)
-    drawn = np.array([[5 + (i * 3 + j) % 10 for j in range(C_GRID[1])]
-                      for i in range(C_GRID[0])], float)
-    r_err = np.abs(radii - drawn)[~blank]
-    _say(f"frame C: fg radius within {r_err.max():.2f} px of the drawn radius")
-    if r_err.max() > 1.5:
-        raise AssertionError("frame C: fg masks do not match the buttons")
+    _check_frame_c("frame C", xc)
     ms_c = _time_ms(run_c, 3)
     _say(f"frame C warm microfluidic_chip(): {ms_c:.3f} ms (median of 3, one "
          f"searched + one copied timestep); last_chip_timings "
          f"{json.dumps(find.last_chip_timings)}; peak device memory "
          f"allocated {peak / 2**30:.3f} GiB ({peak} bytes)")
+    return {"C8": ms_c8, "C": ms_c}
+
+
+def _check_frame_c(what: str, xc) -> None:
+    """Frame C's result against where its buttons were drawn: every
+    non-blank button within 1 px, tags and valid as the pinlist says, fg
+    disks of the drawn radius (within 1.5 px)."""
+    stack, centers, blank = frame_c()
+    xc = xc.transpose("mark_row", "mark_col", ...)
+    y, x = np.asarray(xc.y.values), np.asarray(xc.x.values)  # (56, 28, 2)
+    tag = np.asarray(xc.tag.values)
+    if y.shape != C_GRID + (2,) or not (np.isfinite(y).all()
+                                        and np.isfinite(x).all()):
+        raise AssertionError(f"{what}: x/y of shape {y.shape} or not finite")
+    if not np.array_equal(tag == "", blank) or not bool(
+            np.asarray(xc.valid.values).all()):
+        raise AssertionError(f"{what}: tag/valid differ from the pinlist")
+    err = np.maximum(np.abs(y - centers[..., :1]), np.abs(x - centers[..., 1:]))
+    ok = (err <= 1).all(axis=-1)
+    n_expected = int((~blank).sum())
+    n_found = int(ok[~blank].sum())
+    _say(f"{what}: image {stack.shape[1:]}, {n_found}/{n_expected} "
+         f"non-blank buttons within 1 px of where they were drawn "
+         f"(max error {err[~blank].max():.1f} px), {int(blank.sum())} blank "
+         f"chambers, roi {xc['roi'].shape}")
+    if n_found != n_expected:
+        raise AssertionError(f"{what}: {n_found}/{n_expected} buttons")
+    fg = np.asarray(xc.fg.values)
+    radii = np.sqrt(fg.reshape(C_GRID + (2, -1))[..., 0, :].sum(-1) / np.pi)
+    drawn = np.array([[5 + (i * 3 + j) % 10 for j in range(C_GRID[1])]
+                      for i in range(C_GRID[0])], float)
+    r_err = np.abs(radii - drawn)[~blank]
+    _say(f"{what}: fg radius within {r_err.max():.2f} px of the drawn radius")
+    if r_err.max() > 1.5:
+        raise AssertionError(f"{what}: fg masks do not match the buttons")
+
+
+def ransac_paths(mt, dev, golden, by_path: dict, dense_ms: dict) -> None:
+    """The main paths with ``detector="ransac"`` at the default
+    ``num_iter``: beads on frame A and its stream, the chip on frames C8
+    and C."""
+    import torch
+
+    from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.ops import hysteresis as hyst
+
+    kw = dict(detector="ransac", device=dev)
+    data_a = as_dataarray(mt, "A")
+    with _Launches(by_path, "beads A ransac", RANSAC):
+        xa = mt.beads(data_a, **kw, **FRAME_A_KW)
+    # One search channel: one edge stack, one scorer launch.
+    want = {"hysteresis": hyst.LAUNCHES_PER_CALL, "ring_corr": 0,
+            "perimeter_score": 1}
+    if by_path["beads A ransac"] != want:
+        raise AssertionError(f"beads A ransac launches "
+                             f"{by_path['beads A ransac']} != {want}")
+    n_true, n_a = frame_a()[1], xa["roi"].sizes["mark"]
+    _say(f"frame A, RANSAC: found {n_a}/{n_true} beads, roi "
+         f"{xa['roi'].shape}")
+    if n_a != n_true:
+        raise AssertionError(f"frame A, RANSAC: found {n_a} of {n_true}")
+    _check_case("RA", xa, golden)
+    ms_a = _time_ms(lambda: mt.beads(data_a, **kw, **FRAME_A_KW), 3)
+    _say(f"frame A warm beads(detector='ransac'): {ms_a:.3f} ms per frame "
+         f"(median of 3) vs dense {dense_ms['A']:.3f} ms")
+
+    n_stream = 3
+    path = f"beads_stream {n_stream} x A ransac"
+    with _Launches(by_path, path, RANSAC):
+        outs = list(mt.beads_stream([data_a] * n_stream, **kw,
+                                    **FRAME_A_KW))
+    if len(outs) != n_stream:
+        raise AssertionError(f"beads_stream (ransac) yielded {len(outs)}")
+    for k, out in enumerate(outs):
+        _assert_same_frame(f"beads_stream (ransac) frame {k}", out, xa)
+    want = {k: n_stream * v for k, v in by_path["beads A ransac"].items()}
+    if by_path[path] != want:
+        raise AssertionError(f"{path} launches != {want}")
+    _say(f"beads_stream (ransac): {n_stream} frames equal the single-frame "
+         "call, run serially")
+
+    data_c8 = as_dataarray(mt, "C8")
+    with _Launches(by_path, "chip_c8 ransac", RANSAC):
+        xc = mt.microfluidic_chip(data_c8, **kw, **FRAME_C8_KW)
+    # The grid search's detection, then ONE batch for all 64 crops: their
+    # proposals and their hill-climb.
+    want = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 0,
+            "perimeter_score": 3}
+    if by_path["chip_c8 ransac"] != want:
+        raise AssertionError(f"chip_c8 ransac launches "
+                             f"{by_path['chip_c8 ransac']} != {want}")
+    yx = summarize(xc)["rows"].reshape(-1, *C8_GRID, 2)[0]
+    truth = np.array([[((i + 1) * 100, (j + 1) * 100)
+                       for j in range(C8_GRID[1])]
+                      for i in range(C8_GRID[0])], float)
+    n_marks = int(np.prod(C8_GRID))
+    found = int((np.abs(yx - truth).max(axis=-1) <= 1).sum())
+    _say(f"frame C8, RANSAC: found {found}/{n_marks} buttons within 1 px, "
+         f"roi {xc['roi'].shape}; unique proposals "
+         f"{find.last_chip_timings.get('n_unique')}")
+    if found != n_marks:
+        raise AssertionError(f"frame C8, RANSAC: {found}/{n_marks} buttons")
+    _check_case("RC8", xc, golden)
+    ms_c8 = _time_ms(lambda: mt.microfluidic_chip(data_c8, **kw,
+                                                  **FRAME_C8_KW), 3)
+    _say(f"frame C8 warm microfluidic_chip(detector='ransac'): {ms_c8:.3f} "
+         f"ms (median of 3) vs dense {dense_ms['C8']:.3f} ms; "
+         f"last_chip_timings {json.dumps(find.last_chip_timings)}")
+
+    data_c = as_dataarray(mt, "C")
+
+    def run_c():
+        return mt.microfluidic_chip(data_c, pinlist=frame_c_pinlist(), **kw,
+                                    **FRAME_C_KW)
+
+    torch.cuda.reset_peak_memory_stats()
+    with _Launches(by_path, "chip_c ransac", RANSAC):
+        xc = run_c()
+    if by_path["chip_c ransac"] != want:
+        raise AssertionError(f"chip_c ransac launches "
+                             f"{by_path['chip_c ransac']} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    _check_frame_c("frame C, RANSAC", xc)
+    ms_c = _time_ms(run_c, 2)
+    _say(f"frame C warm microfluidic_chip(detector='ransac'): {ms_c:.3f} ms "
+         f"(median of 2) vs dense {dense_ms['C']:.3f} ms; last_chip_timings "
+         f"{json.dumps(find.last_chip_timings)} (n_unique: unique proposals "
+         f"of the whole-plane search); peak device memory allocated "
+         f"{peak / 2**30:.3f} GiB ({peak} bytes)")
 
 
 # The 24-code, 4-lanthanide, 5-channel panel of the decode-scale check.

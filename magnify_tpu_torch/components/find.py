@@ -1,5 +1,5 @@
 """Bead finding (``find_beads``) and chip-button finding (``find_buttons``)
-with the dense detector on one device.
+on one device, with the dense or the RANSAC detector.
 
 :class:`BeadFinder` is the torch port of the in-memory dense path of
 ``magnify_tpu.components.find.BeadFinder`` (``_fused_dense``):
@@ -13,9 +13,13 @@ with the dense detector on one device.
   package), and the output coordinates.
 
 Marks come out channel-major and, within a channel, best score first — the
-JAX package's order. Only the dense detector exists here: ``"ransac"``
-and the interactive UI raise, and a lazy stack is read into memory whole
-(the out-of-core path is not ported yet; ROADMAP, queue 1).
+JAX package's order. With ``detector="ransac"`` each search channel goes
+through :func:`magnify_tpu_torch.ops.detect.detect_ransac` (the JAX
+package's unfused ``BeadFinder.__call__``: ``num_iter`` threefry proposals
+from seed 0, the exact perimeter scorer) and the channels are deduped on
+the host by KD-tree; the masks and crops are the same host code. The
+interactive UI raises, and a lazy stack is read into memory whole (the
+out-of-core path is not ported yet; ROADMAP, queue 1).
 
 :meth:`BeadFinder.stream` runs the same three phases for a sequence of
 frames with consecutive frames overlapped: a producer thread does the host
@@ -32,8 +36,15 @@ per-cluster regression and grid-line intersection
 every chamber's crop (:func:`magnify_tpu_torch.ops.detect.detect_rois_dense`:
 one hysteresis call and one ring correlation for all chambers of a search
 channel). The host then crops the ROIs at the refined centers and
-rasterizes the fg disk and the bg annulus. The grid search with RANSAC or
-the tuning UI (``find_centers``/``find_rois``) is not ported.
+rasterizes the fg disk and the bg annulus. With ``detector="ransac"`` a
+searched timestep takes the JAX package's unfused path instead:
+:meth:`ButtonFinder.find_centers` (RANSAC per search channel on the raw
+planes, a distance dedupe, and the numpy grid fit of this module:
+:func:`cluster_1d`, :func:`label_clusters`, :func:`regress_clusters`) and
+:meth:`ButtonFinder.find_rois` (one RANSAC + hill-climb batch over every
+chamber crop per search channel,
+:func:`magnify_tpu_torch.ops.detect.detect_best_in_rois`). The tuning UI
+is not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ import contextlib
 import math
 import threading
 import time
+import warnings
 
 import numpy as np
 import scipy.spatial
@@ -55,17 +67,23 @@ from magnify_tpu_torch.core.lazy import alloc_output
 from magnify_tpu_torch.core.registry import components
 from magnify_tpu_torch.ops import detect as ops_detect
 from magnify_tpu_torch.ops import geom as ops_geom
-from magnify_tpu_torch.ops import gridfit
+from magnify_tpu_torch.ops import gridfit, prng
 from magnify_tpu_torch.parallel.streaming import PinnedUploader
 
-__all__ = ["BeadFinder", "ButtonFinder", "chip_fused", "last_chip_timings"]
+__all__ = ["BeadFinder", "ButtonFinder", "chip_fused", "cluster_1d",
+           "label_clusters", "last_chip_timings", "regress_clusters"]
 
-#: What the last chip timestep spent where (seconds, host clock):
+#: What the last chip timestep spent where (seconds, host clock). Dense:
 #: ``upload_bytes``, ``upload_precision``, ``normalize_upload_s`` (host
 #: quantization and the copy to the device), ``dispatch_pull_s`` (the device
 #: timestep of :func:`chip_fused` up to its results on the host) and
-#: ``host_crops_masks_s``. The keys are the JAX package's.
+#: ``host_crops_masks_s``, the JAX package's keys. RANSAC:
+#: ``find_centers_s``, ``find_rois_s`` and ``n_unique`` (the unique
+#: proposals of each search channel's whole-plane detection).
 last_chip_timings: dict = {}
+
+#: The sampler's grid cell, in pixels (the JAX package's finders pass 20).
+GRID_LENGTH = 20
 
 # Budget for the (pairs, L, L) ownership temporaries.
 _PAIR_CHUNK_BYTES = 32 << 20
@@ -83,13 +101,10 @@ def _progress(iterable, enabled):
 
 
 def _check_detector(detector: str, interactive: bool) -> None:
-    """Only the dense detector is ported: refuse the rest by name."""
+    """"auto" (the dense detector), "dense" and "ransac" are ported; the
+    tuning UI is not."""
     if detector not in ("auto", "dense", "ransac"):
         raise ValueError(f"unknown detector {detector!r}")
-    if detector == "ransac":
-        raise NotImplementedError(
-            "the RANSAC detector is not ported yet (ROADMAP queue 1: "
-            "RANSAC parity mode); use detector='dense' or 'auto'")
     if interactive:
         raise NotImplementedError(
             "the interactive tuning UI is not ported yet (ROADMAP "
@@ -189,10 +204,11 @@ def _bead_finalize_host(image, beads, roi_length, max_radius):
 
 
 class BeadFinder:
-    """Find beads in a stitched image with the dense detector.
+    """Find beads in a stitched image.
 
-    ``num_iter`` is accepted for parity with the JAX package and ignored:
-    the dense detector scores every (center, radius)."""
+    ``detector``: "auto"/"dense" scores every (center, radius) and ignores
+    ``num_iter``; "ransac" scores ``num_iter`` Monte-Carlo proposals per
+    search channel with the exact perimeter scorer."""
 
     def __init__(
         self,
@@ -215,7 +231,9 @@ class BeadFinder:
         self.max_bead_radius = math.ceil(max_bead_diameter / 2)
         self.low_edge_quantile = low_edge_quantile
         self.high_edge_quantile = high_edge_quantile
+        self.num_iter = num_iter
         self.min_roundness = min_roundness
+        self.detector = detector
         self.roi_length = (roi_length if roi_length is not None
                            else 2 * max_bead_diameter)
         self.search_channels = utils.to_list(search_channel)
@@ -246,14 +264,16 @@ class BeadFinder:
         return (assay, image_np) + uploader.upload(planes)
 
     def detect(self, planes: np.ndarray) -> np.ndarray:
-        """Dense detection on uint8 search planes (S, H, W): the (n, 3)
-        int32 (row, col, radius) marks, channel-major, best first."""
+        """Detection on uint8 search planes (S, H, W): the (n, 3) int32
+        (row, col, radius) marks, channel-major, best first."""
         return self.detect_planes(torch.as_tensor(planes).to(self.device))
 
     def detect_planes(self, planes_dev: torch.Tensor) -> np.ndarray:
         """:meth:`detect` on planes that already lie on ``self.device``.
         Launches on the calling thread's current stream and waits for the
         marks."""
+        if self.detector == "ransac":
+            return self._detect_ransac(planes_dev)
         blocks = []
         for plane in planes_dev:
             circles, _scores = ops_detect.detect_dense(
@@ -265,6 +285,29 @@ class BeadFinder:
             blocks.append(circles)
         beads = _cross_channel_dedupe(blocks, 2.0 * self.min_bead_radius)
         return beads.cpu().numpy().astype(np.int32).reshape(-1, 3)
+
+    def _detect_ransac(self, planes_dev: torch.Tensor) -> np.ndarray:
+        """RANSAC per search channel, then the JAX package's unfused
+        cross-channel dedupe on the host: a circle within ``2 *
+        min_bead_radius`` of an earlier channel's kept circle drops."""
+        beads = np.empty((0, 3))
+        for plane in planes_dev:
+            circles, _scores, _n = ops_detect.detect_ransac(
+                plane, float(self.low_edge_quantile),
+                float(self.high_edge_quantile), float(self.min_roundness),
+                grid_length=GRID_LENGTH, num_iter=int(self.num_iter),
+                min_radius=self.min_bead_radius,
+                max_radius=self.max_bead_radius,
+                min_dist=self.min_bead_radius,
+                key=prng.prng_key(0, plane.device), normalized=True)
+            found = circles.cpu().numpy().astype(float)
+            if len(beads) > 0 and len(found) > 0:
+                tree = scipy.spatial.KDTree(beads[:, :2])
+                neighbors = tree.query_ball_point(found[:, :2],
+                                                  2 * self.min_bead_radius)
+                found = found[~np.array([len(nb) > 0 for nb in neighbors])]
+            beads = np.concatenate([beads, found])
+        return np.round(beads).astype(np.int32).reshape(-1, 3)
 
     def _assemble(self, assay, image_np, beads_i):
         """Ownership masks, ROI crops and coordinates from the marks."""
@@ -320,6 +363,9 @@ class BeadFinder:
         packed result to pull for several frames at once: ``pull_batch`` is
         validated and has no effect yet. What overlaps is host work (numpy
         releases the interpreter lock) with the calling thread's launches.
+        With the RANSAC detector the frames run the single-frame path one
+        after another on the calling thread, in order, as the JAX package's
+        stream runs them.
 
         A producer failure is re-raised here after the frames before it;
         abandoning the generator releases the producer and the worker.
@@ -328,6 +374,9 @@ class BeadFinder:
         if depth < 1 or pull_batch < 1:
             raise ValueError("stream_depth and stream_pull_batch must be "
                              f">= 1 (got {depth}, {pull_batch})")
+        if self.detector == "ransac":
+            yield from self._serial_stream(inputs, reader, pre, post)
+            return
         on_card = self.device.type == "cuda"
         # One frame being filled, ``depth`` + 1 queued, one in detection.
         uploader = PinnedUploader(self.device, slots=depth + 3)
@@ -408,6 +457,18 @@ class BeadFinder:
                 queue.clear()
                 cv.notify_all()
             assembler.shutdown(wait=False, cancel_futures=True)
+
+    def _serial_stream(self, inputs, reader, pre, post):
+        """The stream without overlap: each frame through the pre-stages,
+        :meth:`__call__` and the post-stages before the next is read."""
+        for data in inputs:
+            for assay in reader(data=data):
+                for _name, comp in pre:
+                    assay = comp(assay)
+                out = self(assay)
+                for _name, comp in post:
+                    out = comp(out)
+                yield out
 
     @components.register("find_beads")
     def make(
@@ -558,25 +619,37 @@ def chip_fused(planes, low_q, high_q, high_q_roi, min_roundness, penalty,
                 row_counts=row_counts, col_counts=col_counts)
 
 
+def _roi_windows(xs, ys, roi_length, h, w):
+    """(tops, lefts) int32 of the windows around float64 centers, rounded
+    half to even and slid (not shrunk) into the image: the JAX package's
+    ``_extract_rois_host``."""
+    tops = np.empty(len(xs), np.int32)
+    lefts = np.empty(len(xs), np.int32)
+    for i, (px, py) in enumerate(zip(xs, ys)):
+        top, _, left, _ = utils.bounding_box(
+            int(round(float(px))), int(round(float(py))), roi_length, w, h)
+        tops[i], lefts[i] = top, left
+    return tops, lefts
+
+
 def _crop_rois_np(images, xs, ys, roi_length):
     """Host ROI crops at clamped windows: images (..., H, W) numpy, returns
     (n, ..., L, L)."""
-    h, w = images.shape[-2:]
+    tops, lefts = _roi_windows(xs, ys, roi_length, *images.shape[-2:])
     out = np.empty((len(xs),) + images.shape[:-2]
                    + (roi_length, roi_length), images.dtype)
-    for i, (px, py) in enumerate(zip(xs, ys)):
-        top, _, left, _ = utils.bounding_box(
-            int(round(float(px))), int(round(float(py))), roi_length, w, h
-        )
+    for i, (top, left) in enumerate(zip(tops, lefts)):
         out[i] = images[..., top:top + roi_length, left:left + roi_length]
     return out
 
 
 class ButtonFinder:
-    """Find chip buttons on a grid with the dense detector.
+    """Find chip buttons on a grid.
 
-    ``num_iter`` is accepted for parity with the JAX package and ignored:
-    the dense detector scores every (center, radius)."""
+    ``detector``: "auto"/"dense" runs the fused dense timestep and ignores
+    ``num_iter``; "ransac" runs :meth:`find_centers` and :meth:`find_rois`
+    with ``num_iter`` proposals for the whole plane and ``num_iter //
+    n_chambers`` per chamber, scored by the exact perimeter scorer."""
 
     def __init__(
         self,
@@ -612,7 +685,9 @@ class ButtonFinder:
         self.left_chamber = left_chamber
         self.low_edge_quantile = low_edge_quantile
         self.high_edge_quantile = high_edge_quantile
+        self.num_iter = num_iter
         self.min_roundness = min_roundness
+        self.detector = detector
         self.cluster_penalty = cluster_penalty
         self.roi_length = (roi_length if roi_length is not None
                            else round(1.2 * chamber_diameter))
@@ -641,9 +716,26 @@ class ButtonFinder:
         search_idxs = [_channel_index(assay, c) for c in search_channels]
         for t in _progress(self.search_timesteps, self.progress_bar):
             images = assay.image.isel(time=t).to_numpy()  # (channel, H, W)
-            (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
-             y[..., t], valid[..., t]) = self._fused_timestep(
-                images, tag, valid[..., t], search_idxs)
+            if self.detector != "ransac":
+                (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
+                 y[..., t], valid[..., t]) = self._fused_timestep(
+                    images, tag, valid[..., t], search_idxs)
+                continue
+            # One upload per searched timestep, as f32 (uint16 values are
+            # exact; torch indexes no uint16 tensors).
+            images_dev = torch.as_tensor(np.ascontiguousarray(
+                images, dtype=np.float32)).to(self.device)
+            t0 = time.perf_counter()
+            x[..., t], y[..., t] = self.find_centers(images_dev, search_idxs,
+                                                     tag)
+            t1 = time.perf_counter()
+            (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t], y[..., t],
+             valid[..., t]) = self.find_rois(
+                images, images_dev, tag, x[..., t], y[..., t], valid[..., t],
+                search_idxs)
+            last_chip_timings.update(find_centers_s=round(t1 - t0, 6),
+                                     find_rois_s=round(
+                                         time.perf_counter() - t1, 6))
 
         # Timesteps that are not searched copy the positions and need ROI
         # crops only: host slicing, with the next plane's read prefetched
@@ -797,6 +889,146 @@ class ButtonFinder:
             valid_t,
         )
 
+    def find_centers(self, images_dev, search_idxs, tag):
+        """Grid-constrained chamber centers by RANSAC
+        (``ButtonFinder.find_centers``, its non-dense branch).
+
+        Each search plane of ``images_dev`` (C, H, W) (raw values, f32) is
+        normalized and searched on the device; a channel's circle within
+        ``chamber_radius`` of an earlier channel's kept circle drops. The
+        centers are clustered into rows and columns, each cluster's line
+        fitted and the lines intersected, in numpy (float64). Returns
+        (mark_x, mark_y) (R, C) float64.
+        """
+        min_button_dist = self.chamber_radius
+        h, w = images_dev.shape[-2:]
+        points = np.empty((0, 2))
+        n_unique = []
+        for ci in search_idxs:
+            circles, _scores, n_u = ops_detect.detect_ransac(
+                images_dev[ci], float(self.low_edge_quantile),
+                float(self.high_edge_quantile), float(self.min_roundness),
+                grid_length=GRID_LENGTH, num_iter=int(self.num_iter),
+                min_radius=self.min_button_radius,
+                max_radius=self.max_button_radius,
+                min_dist=int(min_button_dist),
+                key=prng.prng_key(0, images_dev.device), normalized=False)
+            n_unique.append(n_u)
+            found = circles[:, :2].cpu().numpy().astype(float)
+            if len(points) > 0 and len(found) > 0:
+                dists = np.linalg.norm(points[None] - found[:, None], axis=2)
+                found = found[np.min(dists, axis=1) > min_button_dist]
+            points = np.concatenate([points, found])
+        last_chip_timings.clear()
+        last_chip_timings["n_unique"] = n_unique
+
+        xs, ys = points[:, 1], points[:, 0]
+        points_per_row = (tag != "").sum(axis=1)
+        points_per_col = (tag != "").sum(axis=0)
+        num_rows, num_cols = tag.shape
+        if self.top_chamber is None:
+            row_labels = cluster_1d(
+                ys, total_length=h, num_clusters=num_rows,
+                cluster_length=self.row_dist,
+                ideal_num_points=points_per_row, penalty=self.cluster_penalty)
+        else:
+            row_labels = label_clusters(
+                ys, offset=self.top_chamber, num_clusters=num_rows,
+                cluster_length=2 * self.chamber_radius,
+                cluster_gap=self.row_dist - 2 * self.chamber_radius)
+        if self.left_chamber is None:
+            col_labels = cluster_1d(
+                xs, total_length=w, num_clusters=num_cols,
+                cluster_length=self.col_dist,
+                ideal_num_points=points_per_col, penalty=self.cluster_penalty)
+        else:
+            col_labels = label_clusters(
+                xs, offset=self.left_chamber, num_clusters=num_cols,
+                cluster_length=2 * self.chamber_radius,
+                cluster_gap=self.col_dist - 2 * self.chamber_radius)
+
+        in_cluster = (row_labels >= 0) & (col_labels >= 0)
+        xs, ys = xs[in_cluster], ys[in_cluster]
+        col_labels = col_labels[in_cluster]
+        row_labels = row_labels[in_cluster]
+        row_slope, row_intercepts = regress_clusters(
+            xs, ys, labels=row_labels, num_clusters=num_rows,
+            ideal_num_points=points_per_row)
+        # Columns regress with the axes swapped to avoid near-vertical slopes.
+        col_slope, col_intercepts = regress_clusters(
+            ys, xs, labels=col_labels, num_clusters=num_cols,
+            ideal_num_points=points_per_col)
+        mark_y = (row_slope * col_intercepts[None] + row_intercepts[:, None]
+                  ) / (1 - row_slope * col_slope)
+        mark_x = mark_y * col_slope + col_intercepts[None]
+        return mark_x, mark_y
+
+    def find_rois(self, images_np, images_dev, tag, x, y, valid,
+                  search_idxs):
+        """Per-chamber refinement by RANSAC (``ButtonFinder.find_rois``, its
+        non-dense branch).
+
+        Every chamber is cropped at its grid center (``images_dev``, the
+        timestep's (C, H, W) f32 planes) and each search channel's crops go
+        through one :func:`~magnify_tpu_torch.ops.detect.detect_best_in_rois`
+        batch with ``num_iter // n_chambers`` proposals per crop; a later
+        channel wins a chamber only with a strictly better score. Refined
+        chambers move to the detected center, the others keep their grid
+        intersection. The ROIs are then cropped from ``images_np`` at the
+        final centers and the fg disk / bg annulus rasterized on the host.
+        """
+        num_rows, num_cols = tag.shape
+        n = num_rows * num_cols
+        n_ch = images_np.shape[0]
+        L = self.roi_length
+        h, w = images_np.shape[-2:]
+        xs = x.reshape(-1)
+        ys = y.reshape(-1)
+
+        tops, lefts = _roi_windows(xs, ys, L, h, w)
+        crops_dev = ops_geom.extract_rois(
+            images_dev, torch.as_tensor(tops, device=images_dev.device),
+            torch.as_tensor(lefts, device=images_dev.device), L)
+        roi_iter = max(int(self.num_iter) // n, 1)
+        high_q = 1 - np.pi * self.min_button_radius / L**2
+        best_score = np.full(n, -np.inf)
+        best_circle = np.zeros((n, 3), np.int32)
+        for ci in search_idxs:
+            circles, scores, found = ops_detect.detect_best_in_rois(
+                crops_dev[:, ci], self.low_edge_quantile, high_q,
+                self.min_button_radius, self.max_button_radius,
+                self.min_roundness, device=images_dev.device,
+                detector="ransac", grid_length=GRID_LENGTH,
+                num_iter=roi_iter)
+            better = found & (scores > best_score)
+            best_score = np.where(better, scores, best_score)
+            best_circle = np.where(better[:, None], circles, best_circle)
+
+        refined = np.isfinite(best_score) & (tag.reshape(-1) != "")
+        new_y = np.where(refined, best_circle[:, 0] + tops, np.round(ys))
+        new_x = np.where(refined, best_circle[:, 1] + lefts, np.round(xs))
+        radius = np.where(refined, best_circle[:, 2], self.max_button_radius)
+        out_x = np.where(refined, new_x.astype(float), xs)
+        out_y = np.where(refined, new_y.astype(float), ys)
+
+        # Re-crop at the refined centers so the button is centered.
+        tops, lefts = _roi_windows(out_x, out_y, L, h, w)
+        crops = _crop_rois_np(images_np, out_x, out_y, L)
+        centers_rel = np.stack([np.round(out_y).astype(np.int32) - tops,
+                                np.round(out_x).astype(np.int32) - lefts],
+                               axis=1)
+        fg = utils.disk_masks((L, L), centers_rel, radius)
+        bg = utils.annulus_masks((L, L), centers_rel, self.chamber_radius,
+                                 self.max_button_radius)
+        return (
+            crops.reshape(num_rows, num_cols, n_ch, L, L),
+            fg.reshape(num_rows, num_cols, L, L),
+            bg.reshape(num_rows, num_cols, L, L),
+            out_x.reshape(num_rows, num_cols),
+            out_y.reshape(num_rows, num_cols),
+            valid,
+        )
+
     @components.register("find_buttons")
     def make(
         row_dist: float,
@@ -840,3 +1072,151 @@ class ButtonFinder:
             detector=detector,
             device=device,
         )
+
+
+# ---------------------------------------------------------------------------
+# 1-D clustering + regression (host geometry of the RANSAC grid search)
+# ---------------------------------------------------------------------------
+# Numpy code copied from magnify_tpu.components.find: the RANSAC branch of
+# find_centers fits the grid on the host in float64, and the device twins
+# of ops/gridfit.py reduce in another order.
+
+def cluster_1d(points: np.ndarray, total_length: int, num_clusters: int,
+               cluster_length: float, ideal_num_points: np.ndarray,
+               penalty: float) -> np.ndarray:
+    """Exhaustive 1-D grid-offset sweep, vectorized over all offsets.
+
+    Per-cluster point variance scaled by sqrt(ideal count) plus a quadratic
+    count-mismatch penalty; empty clusters cost the per-offset maximum.
+    Labels outliers -1.
+    """
+    n_offsets = total_length - round(num_clusters * cluster_length)
+    if n_offsets <= 0:
+        raise ValueError(
+            "cluster_1d: num_clusters * cluster_length exceeds total_length."
+        )
+    permutation = np.argsort(points)
+    pts = points[permutation]
+    ideal = np.asarray(ideal_num_points, dtype=float)
+
+    offsets = np.arange(n_offsets)[:, None]
+    edges = np.arange(num_clusters + 1) * cluster_length + offsets  # (O, C+1)
+    centers = (edges[:, 1:] + edges[:, :-1]) / 2
+
+    spans = np.searchsorted(pts, edges)  # (O, C+1)
+    s, e = spans[:, :-1], spans[:, 1:]
+    counts = e - s
+
+    p1 = np.concatenate([[0.0], np.cumsum(pts)])
+    p2 = np.concatenate([[0.0], np.cumsum(pts**2)])
+    sum1 = p1[e] - p1[s]
+    sum2 = p2[e] - p2[s]
+    sq_dev = sum2 - 2 * centers * sum1 + counts * centers**2
+
+    with np.errstate(invalid="ignore", divide="ignore"):
+        var = np.where(counts > 0, sq_dev / np.maximum(counts, 1), 0.0)
+    row_max = var.max(axis=1, keepdims=True)
+    var = np.where(counts == 0, row_max, var)
+    cost = var * np.sqrt(ideal) + penalty * (ideal - counts) ** 2
+    totals = cost.sum(axis=1)
+    best = int(np.argmin(totals))
+    best_spans = spans[best]
+
+    labels = -np.ones(len(pts), dtype=int)
+    labels[best_spans[0]: best_spans[-1]] = np.repeat(
+        np.arange(num_clusters), best_spans[1:] - best_spans[:-1]
+    )
+    return labels[np.argsort(permutation)]
+
+
+def label_clusters(points, offset, num_clusters, cluster_length,
+                   cluster_gap):
+    """Fixed-geometry cluster labelling when the chip boundary is known:
+    cluster ``i`` is ``[offset + i*(length+gap), ... + length)``; points
+    outside every interval get -1."""
+    points = np.asarray(points)
+    pitch = cluster_length + cluster_gap
+    starts = offset + np.arange(num_clusters) * pitch
+    slot = np.searchsorted(starts, points, side="right") - 1
+    clipped = np.clip(slot, 0, num_clusters - 1)
+    inside = (slot >= 0) & (points < starts[clipped] + cluster_length)
+    return np.where(inside, clipped, -1).astype(int)
+
+
+def _linregress(x, y):
+    x = np.asarray(x, float)
+    y = np.asarray(y, float)
+    xm, ym = x.mean(), y.mean()
+    denom = ((x - xm) ** 2).sum()
+    if denom == 0:
+        return np.nan, ym
+    slope = ((x - xm) * (y - ym)).sum() / denom
+    return slope, ym - slope * xm
+
+
+def _grouped_slopes(x, y, labels, num_clusters):
+    """Least-squares slope per label via grouped sums; NaN where a cluster
+    has fewer than 2 points (or zero x-variance)."""
+    ok = labels >= 0
+    lbl, xs, ys = labels[ok], x[ok], y[ok]
+    n = np.bincount(lbl, minlength=num_clusters).astype(float)
+    sx = np.bincount(lbl, weights=xs, minlength=num_clusters)
+    sy = np.bincount(lbl, weights=ys, minlength=num_clusters)
+    sxx = np.bincount(lbl, weights=xs * xs, minlength=num_clusters)
+    sxy = np.bincount(lbl, weights=xs * ys, minlength=num_clusters)
+    denom = n * sxx - sx**2
+    with np.errstate(invalid="ignore", divide="ignore"):
+        slopes = np.where((n >= 2) & (denom != 0),
+                          (n * sxy - sx * sy) / np.where(denom == 0, 1, denom),
+                          np.nan)
+    return slopes, n.astype(int)
+
+
+def regress_clusters(x: np.ndarray, y: np.ndarray, labels: np.ndarray,
+                     num_clusters: int, ideal_num_points: np.ndarray) -> tuple:
+    """Robust per-cluster line fits: the median of the per-cluster
+    least-squares slopes, per-cluster median intercepts under that slope,
+    blended with an evenly spaced intercept lattice by how full each
+    cluster is. Returns (slope, intercepts (num_clusters,))."""
+    x = np.asarray(x, float)
+    y = np.asarray(y, float)
+    labels = np.asarray(labels)
+    ideal = np.asarray(ideal_num_points)
+    if num_clusters == 1:
+        if len(x) == 1:
+            return 0, y
+        slope, intercept = _linregress(x, y)
+        return slope, np.atleast_1d(intercept)
+
+    slopes, counts = _grouped_slopes(x, y, labels, num_clusters)
+    for edge in (0, num_clusters - 1):
+        if counts[edge] < 2 and ideal[edge] >= 2:
+            diagnostics.log.warning(
+                "edge cluster %d has %d point(s); the chip grid is unlikely "
+                "to be segmented correctly", edge, counts[edge],
+            )
+
+    with np.errstate(invalid="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        slope = np.nanmedian(slopes)
+    if np.isnan(slope):
+        # Every cluster has <= 1 point: take the grid lines as axis-aligned.
+        slope = 0.0
+    residuals = y - slope * x
+    intercepts = np.full(num_clusters, np.nan)
+    for i in np.flatnonzero(counts):
+        intercepts[i] = np.median(residuals[labels == i])
+
+    observed = ~np.isnan(intercepts)
+    lattice_m, lattice_b = _linregress(np.flatnonzero(observed),
+                                       intercepts[observed])
+    lattice = lattice_m * np.arange(num_clusters) + lattice_b
+    with np.errstate(invalid="ignore", divide="ignore"):
+        weight = np.minimum(counts, ideal) / np.where(ideal == 0, 1, ideal)
+    use_local = observed & (ideal != 0)
+    blended = np.where(
+        use_local,
+        weight * np.where(observed, intercepts, 0.0) + (1 - weight) * lattice,
+        lattice,
+    )
+    return slope, blended

@@ -1,7 +1,13 @@
-"""Dense circle detection on one device: the dense detector's whole path.
+"""Circle detection on one device: the dense detector's and the RANSAC
+detector's whole paths.
 
-    edge stack -> int8 ring-correlation score maps -> bound filters ->
-    roundness threshold -> survivors in (-score, index) order -> greedy NMS
+    dense:  edge stack -> int8 ring-correlation score maps -> bound filters
+            -> roundness threshold -> survivors in (-score, index) order ->
+            greedy NMS
+    RANSAC: edge stack (with gradient angles) -> Monte-Carlo circumcircle
+            proposals -> unique triples -> exact perimeter scores ->
+            roundness threshold -> survivors in (-score, index) order ->
+            greedy NMS
 
 Torch port of ``magnify_tpu.ops.detect``'s dense path
 (``_dense_candidates`` and ``_stage_dense_full``), the batched per-ROI
@@ -11,6 +17,13 @@ quantizations of the search planes (``normalize_planes_u8``/``_u16``,
 buffers with a memoized static cap and a grow-retry (a jit needs static
 shapes); eager torch takes the survivors with ``torch.nonzero``, so there
 is no cap to grow and the result equals the JAX result at an adequate cap.
+
+The RANSAC detector is the port of ``find_circles``' RANSAC branch
+(``_stage_ransac_packed`` and ``ransac_score_pack``) and of the per-ROI
+``_detect_rois`` with its 3 x 3 x 3 hill-climb. It scores with the exact
+perimeter ("gather") scorer, the one the JAX package runs on every backend
+but the TPU; its proposals come from the JAX package's threefry streams, so
+one seed gives the same circles in both packages.
 """
 
 from __future__ import annotations
@@ -21,13 +34,25 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from magnify_tpu_torch.ops import prng
 from magnify_tpu_torch.ops.edge import edge_pipeline
 from magnify_tpu_torch.ops.nms import parallel_greedy_nms
-from magnify_tpu_torch.ops.score import score_maps
+from magnify_tpu_torch.ops.ransac import candidate_circles
+from magnify_tpu_torch.ops.score import (dedupe_circles, score_circles,
+                                         score_maps)
 
 __all__ = ["choose_upload_precision", "dense_candidates",
-           "detect_best_in_rois", "detect_dense", "detect_rois_dense",
-           "normalize_planes_u16", "normalize_planes_u8"]
+           "detect_best_in_rois", "detect_dense", "detect_ransac",
+           "detect_rois_dense", "detect_rois_ransac", "normalize_planes_u16",
+           "normalize_planes_u8"]
+
+#: The JAX package's per-ROI unique cap (``detect_best_in_rois``).
+ROI_UNIQUE_CAP = 4096
+
+#: The 27 (dy, dx, dr) steps of the per-ROI hill-climb, in the JAX order.
+_NEIGHBORHOOD = np.array([(dy, dx, dr) for dy in (-1, 0, 1)
+                          for dx in (-1, 0, 1) for dr in (-1, 0, 1)],
+                         dtype=np.int32)
 
 
 def normalize_planes_u8(images: np.ndarray) -> np.ndarray:
@@ -194,20 +219,138 @@ def detect_rois_dense(rois: torch.Tensor, low_q: float, high_q: float,
     return circles, scores
 
 
+def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
+                  min_roundness: float, *, grid_length: int, num_iter: int,
+                  min_radius: int, max_radius: int, min_dist: int,
+                  key: torch.Tensor, normalized: bool):
+    """RANSAC detection + greedy NMS of one plane (``_stage_ransac_packed``).
+
+    ``normalized`` says whether ``image`` already holds uint8 values (the
+    bead path's host-normalized planes; normalizing them again changes
+    nothing) or raw values (the chip's ``find_centers``). Returns the
+    NMS-accepted circles (n, 3) int32, best first, their scores, and the
+    number of unique proposals.
+    """
+    h, w = image.shape
+    edges, _dx, _dy, angles = edge_pipeline(image, low_q, high_q,
+                                            normalized, angles=True)
+    cands, any_edges = candidate_circles(edges, grid_length, num_iter, key)
+    uniq, n_unique = dedupe_circles(
+        cands, any_edges, height=h, width=w, min_radius=min_radius,
+        max_radius=max_radius)
+    pad = 2 * max_radius
+    shift = torch.tensor([pad, pad, 0], dtype=torch.int32,
+                         device=uniq.device)
+    scores = score_circles(F.pad(angles, (pad,) * 4),
+                           F.pad(edges, (pad,) * 4), uniq + shift,
+                           max_radius=max_radius)
+    thresh = torch.tensor(np.float32(min_roundness), device=scores.device)
+    lin = torch.nonzero(scores >= thresh).reshape(-1)  # unique-index order
+    order = torch.sort(-scores[lin], stable=True).indices
+    lin = lin[order]
+    circles, scores = uniq[lin], scores[lin]
+    accepted = parallel_greedy_nms(
+        circles, torch.isfinite(scores), min_dist=min_dist, height=h,
+        width=w, max_radius=max_radius)
+    return circles[accepted], scores[accepted], n_unique
+
+
+def detect_rois_ransac(rois: torch.Tensor, low_q: float, high_q: float,
+                       min_roundness: float, keys: torch.Tensor, *,
+                       grid_length: int, num_iter: int, min_radius: int,
+                       max_radius: int, unique_cap: int):
+    """The best circle of every ROI by RANSAC and a hill-climb:
+    ``magnify_tpu.ops.detect._detect_rois`` with the gather scorer.
+
+    ``rois`` (N, L, L), each crop min-max normalized on its own and its
+    edge stack run on the whole batch; ``keys`` (N, 2), one threefry key
+    per crop. Per crop: ``num_iter`` proposals, the first ``unique_cap``
+    unique triples in key order (no retry, as the JAX package), their
+    scores at or above ``min_roundness`` and the first maximum; then the 27
+    neighbours (dy, dx, dr in -1..1, the radius clipped to the range) of
+    that maximum are scored, unfiltered, and the first best of them
+    replaces it only where strictly better. Returns (circles (N, 3) int32
+    relative to the crop, scores (N,) f32, ``-inf`` where no proposal
+    reached ``min_roundness``; such a crop's circle is meaningless).
+    """
+    n, l, _ = rois.shape
+    dev = rois.device
+    edges, _dx, _dy, angles = edge_pipeline(
+        rois.to(torch.float32), low_q, high_q, normalized=False, angles=True)
+    cands, any_edges = candidate_circles(edges, grid_length, num_iter, keys)
+    uniq, uvalid, _n = dedupe_circles(
+        cands, any_edges[:, None], height=l, width=l, min_radius=min_radius,
+        max_radius=max_radius, cap=unique_cap)
+    pad = 2 * max_radius
+    ga = F.pad(angles, (pad,) * 4)
+    eg = F.pad(edges, (pad,) * 4)
+    shift = torch.tensor([pad, pad, 0], dtype=torch.int32, device=dev)
+    planes = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def scores_of(circles, valid):
+        """Scores of (N, K, 3) circles, K per crop."""
+        k = circles.shape[1]
+        out = score_circles(ga, eg, (circles + shift).reshape(-1, 3),
+                            valid.reshape(-1),
+                            planes.repeat_interleave(k),
+                            max_radius=max_radius)
+        return out.reshape(n, k)
+
+    thresh = torch.tensor(np.float32(min_roundness), device=dev)
+    scores = scores_of(uniq, uvalid)
+    scores = torch.where(scores >= thresh, scores, -torch.inf)
+    best = torch.argmax(scores, dim=1)
+    best_circle = uniq[torch.arange(n, device=dev), best]
+    best_score = torch.gather(scores, 1, best[:, None])[:, 0]
+
+    nb = torch.as_tensor(_NEIGHBORHOOD, device=dev)
+    cand = best_circle[:, None, :] + nb[None]
+    cand[..., 2] = torch.clamp(cand[..., 2], min_radius, max_radius)
+    nb_ok = torch.isfinite(best_score)[:, None].expand(n, nb.shape[0])
+    nb_scores = scores_of(cand, nb_ok)
+    j = torch.argmax(nb_scores, dim=1)
+    nb_best = torch.gather(nb_scores, 1, j[:, None])[:, 0]
+    improved = nb_best > best_score
+    best_circle = torch.where(improved[:, None],
+                              cand[torch.arange(n, device=dev), j],
+                              best_circle)
+    return best_circle, torch.where(improved, nb_best, best_score)
+
+
 def detect_best_in_rois(rois, low_edge_quantile: float,
                         high_edge_quantile: float, min_radius: int,
                         max_radius: int, min_roundness: float,
-                        device="cuda"):
+                        device="cuda", *, detector: str = "auto",
+                        grid_length: int = 20, num_iter: int | None = None,
+                        seed: int = 0, unique_cap: int = ROI_UNIQUE_CAP):
     """Best circle per ROI for a batch of same-size ROIs (numpy or tensor):
-    the dense branch of ``magnify_tpu.ops.detect.detect_best_in_rois``.
+    ``magnify_tpu.ops.detect.detect_best_in_rois``. ``detector``
+    "auto"/"dense" takes the dense branch; "ransac" runs ``num_iter``
+    proposals per ROI with keys ``split(PRNGKey(seed), N)`` and keeps
+    ``min(unique_cap, num_iter)`` uniques per ROI.
     Returns numpy (circles (N, 3) int32, scores (N,), found (N,) bool)."""
     if isinstance(rois, np.ndarray):  # uint16 crops are exact in f32
         rois = torch.from_numpy(np.ascontiguousarray(rois, dtype=np.float32))
     rois = rois.to(device)
-    circles, scores = detect_rois_dense(
-        rois, float(low_edge_quantile), float(high_edge_quantile),
-        float(min_roundness), min_radius=int(min_radius),
-        max_radius=int(max_radius))
+    args = (float(low_edge_quantile), float(high_edge_quantile),
+            float(min_roundness))
+    if detector in ("auto", "dense"):
+        circles, scores = detect_rois_dense(
+            rois, *args, min_radius=int(min_radius),
+            max_radius=int(max_radius))
+    elif detector == "ransac":
+        if num_iter is None:
+            raise ValueError("detect_best_in_rois: the RANSAC detector "
+                             "needs num_iter")
+        num_iter = max(int(num_iter), 1)
+        keys = prng.split(prng.prng_key(seed, rois.device), rois.shape[0])
+        circles, scores = detect_rois_ransac(
+            rois, *args, keys, grid_length=int(grid_length),
+            num_iter=num_iter, min_radius=int(min_radius),
+            max_radius=int(max_radius),
+            unique_cap=int(min(unique_cap, num_iter)))
+    else:
+        raise ValueError(f"unknown detector {detector!r}")
     circles = circles.cpu().numpy()
     scores = scores.cpu().numpy()
     return circles, scores, np.isfinite(scores)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from magnify_tpu_torch.ops.hysteresis import hysteresis
 
 __all__ = [
+    "atan2_f32",
     "canny",
     "canny_nms",
     "edge_pipeline",
@@ -113,6 +114,97 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     step = torch.where((err > 0) == (s > 0), 1, -1)
     bits = torch.where(to_odd, bits + step, bits)
     return bits.view(torch.float64).to(torch.float32)
+
+
+# fdlibm's float arctangent (``s_atanf.c``/``e_atan2f.c``, as the GNU C
+# library builds it): the split points, atan(0.5, 1, 1.5, inf) in two parts,
+# and the 11 odd-polynomial coefficients.
+_ATAN_HI = (4.6364760399e-01, 7.8539812565e-01, 9.8279368877e-01,
+            1.5707962513e+00)
+_ATAN_LO = (5.0121582440e-09, 3.7748947079e-08, 3.4473217170e-08,
+            7.5497894159e-08)
+_ATAN_T = (3.3333334327e-01, -2.0000000298e-01, 1.4285714924e-01,
+           -1.1111110449e-01, 9.0908870101e-02, -7.6918758452e-02,
+           6.6610731184e-02, -5.8335702866e-02, 4.9768779427e-02,
+           -3.6531571299e-02, 1.6285819933e-02)
+_PI_O_2, _PI, _PI_LO, _TINY = (1.5707963705e+00, 3.1415927410e+00,
+                               -8.7422776573e-08, 1e-30)
+
+
+def _f32(v, like: torch.Tensor) -> torch.Tensor:
+    """An f32 constant as a tensor (a Python-float operand may take another
+    rounding path than an f32 tensor does)."""
+    return torch.tensor(np.float32(v), device=like.device).expand_as(like)
+
+
+def _atanf(x: torch.Tensor) -> torch.Tensor:
+    """fdlibm's ``atanf``: four-interval argument reduction and the odd
+    polynomial in two halves, every step one rounded f32 operation."""
+    hx = x.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    one, two, h = _f32(1.0, x), _f32(2.0, x), _f32(1.5, x)
+    ax = x.abs()
+    interval = torch.where(ix < 0x3F300000, 0, torch.where(
+        ix < 0x3F980000, 1, torch.where(ix < 0x401C0000, 2, 3)))
+    small = ix < 0x3EE00000  # |x| < 7/16: no reduction
+    xr = torch.where(small, x, torch.where(
+        interval == 0, (two * ax - one) / (two + ax), torch.where(
+            interval == 1, (ax - one) / (ax + one), torch.where(
+                interval == 2, (ax - h) / (one + h * ax), -one / ax))))
+    t = [_f32(c, x) for c in _ATAN_T]
+    z = xr * xr
+    w = z * z
+    s1 = z * (t[0] + w * (t[2] + w * (t[4] + w * (t[6] + w * (
+        t[8] + w * t[10])))))
+    s2 = w * (t[1] + w * (t[3] + w * (t[5] + w * (t[7] + w * t[9]))))
+    hi = torch.tensor(np.float32(_ATAN_HI), device=x.device)[interval]
+    lo = torch.tensor(np.float32(_ATAN_LO), device=x.device)[interval]
+    reduced = hi - ((xr * (s1 + s2) - lo) - xr)
+    out = torch.where(small, xr - xr * (s1 + s2),
+                      torch.where(hx < 0, -reduced, reduced))
+    inf_val = _f32(np.float32(_ATAN_HI[3]) + np.float32(_ATAN_LO[3]), x)
+    out = torch.where(ix >= 0x4C000000,
+                      torch.where(hx > 0, inf_val, -inf_val), out)
+    out = torch.where(ix < 0x31000000, x, out)  # |x| < 2^-29
+    return torch.where(ix > 0x7F800000, x + x, out)  # NaN
+
+
+def atan2_f32(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``arctan2(y, x)`` of f32 tensors as XLA computes it on the CPU.
+
+    XLA's CPU backend lowers ``atan2`` to the C library's ``atan2f``; the
+    GNU C library's is fdlibm's float algorithm, which is not correctly
+    rounded (it differs from the rounded true value on ~16% of gradient
+    pairs, by one ulp). The reference's gradient angles come from it, and
+    a one-ulp angle can move a perimeter score, so the port computes the
+    same algorithm: each step one rounded f32 operation, the same on every
+    device. Finite inputs (the Scharr gradients) are handled exactly as
+    ``atan2f`` does; infinities are not (no gradient is infinite).
+    """
+    hx = x.view(torch.int32)
+    ix = hx & 0x7FFFFFFF
+    hy = y.view(torch.int32)
+    iy = hy & 0x7FFFFFFF
+    quadrant = ((hy >> 31) & 1) | ((hx >> 30) & 2)  # 2*sign(x) + sign(y)
+    k = (iy - ix) >> 23
+    z = _atanf((y / x).abs())
+    z = torch.where(k > 60, _f32(np.float32(_PI_O_2)
+                                 + np.float32(0.5) * np.float32(_PI_LO), z), z)
+    z = torch.where((hx < 0) & (k < -60), torch.zeros_like(z), z)
+    pi, pi_lo = _f32(_PI, z), _f32(_PI_LO, z)
+    out = torch.where(quadrant == 0, z, torch.where(
+        quadrant == 1, -z, torch.where(quadrant == 2, pi - (z - pi_lo),
+                                       (z - pi_lo) - pi)))
+    tiny = np.float32(_TINY)
+    on_x_axis = torch.where(quadrant <= 1, y, torch.where(
+        quadrant == 2, _f32(np.float32(_PI) + tiny, z),
+        _f32(-np.float32(_PI) - tiny, z)))
+    out = torch.where(iy == 0, on_x_axis, out)
+    on_y_axis = torch.where(hy < 0, _f32(-np.float32(_PI_O_2) - tiny, z),
+                            _f32(np.float32(_PI_O_2) + tiny, z))
+    out = torch.where((ix == 0) & (iy != 0), on_y_axis, out)
+    out = torch.where(hx == 0x3F800000, _atanf(y), out)  # x = 1
+    return torch.where((ix > 0x7F800000) | (iy > 0x7F800000), x + y, out)
 
 
 def histogram_quantiles(values: torch.Tensor, qs, *,
@@ -201,7 +293,8 @@ def canny(dx, dy, low_thresh, high_thresh):
 
 
 def edge_pipeline(img: torch.Tensor, low_edge_quantile: float,
-                  high_edge_quantile: float, normalized: bool = True):
+                  high_edge_quantile: float, normalized: bool = True,
+                  angles: bool = False):
     """normalize -> blur -> Scharr -> quantile thresholds -> Canny.
 
     The counterpart of ``magnify_tpu.ops.edge.edge_pipeline``. With
@@ -211,8 +304,12 @@ def edge_pipeline(img: torch.Tensor, low_edge_quantile: float,
     every plane is min-max normalized first (:func:`normalize_to_u8`), as
     the chip path's per-chamber crops are. ``img``: (H, W), or a batch
     (N, H, W) whose planes each get their own thresholds. Returns (edges
-    bool, dx, dy); the dense detector never reads the gradient angles, so
-    they are not computed.
+    bool, dx, dy), and with ``angles`` also the gradient angles
+    ``arctan2(dy, dx)`` (:func:`atan2_f32`) that the RANSAC scorer reads;
+    the dense detector never reads them.
+
+    Note the default: the JAX function's ``normalized`` is False, this
+    one's True. A caller passes what the JAX call site means.
     """
     u8 = img.to(torch.float32) if normalized else normalize_to_u8(img)
     blurred = gaussian_blur5_u8(u8)
@@ -222,4 +319,6 @@ def edge_pipeline(img: torch.Tensor, low_edge_quantile: float,
         grad, [np.float32(low_edge_quantile), np.float32(high_edge_quantile)],
         batched=img.ndim == 3)
     edges = canny(dx, dy, low_t, high_t)
+    if angles:
+        return edges, dx, dy, atan2_f32(dy, dx)
     return edges, dx, dy

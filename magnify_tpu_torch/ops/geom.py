@@ -1,12 +1,14 @@
-"""Geometry: the disk rasterization table of the host mask code, batched
-ROI windows and plane rotation on a device.
+"""Geometry: the disk rasterization table of the host mask code, the
+perimeter tables of the RANSAC scorer, batched ROI windows and plane
+rotation on a device.
 
 A filled Bresenham disk is exactly ``{(dy, dx): |dy| <= r, |dx| <= ext_r[|dy|]}``,
 so the ownership masks of :mod:`magnify_tpu_torch.components.find` rasterize
 with one table lookup and a compare. Numpy code copied from
 ``magnify_tpu.ops.geom.extent_lut``; the table is array-equal to the JAX
-package's. :func:`extract_rois` and :func:`rotate_plane` are the torch
-counterparts of the JAX package's functions of the same names.
+package's, and so are :func:`perimeter_tables`'. :func:`extract_rois` and
+:func:`rotate_plane` are the torch counterparts of the JAX package's
+functions of the same names.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from magnify_tpu_torch import utils
 
-__all__ = ["extent_lut", "extract_rois", "rotate_plane"]
+__all__ = ["extent_lut", "extract_rois", "perimeter_tables", "rotate_plane"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,6 +34,25 @@ def extent_lut(max_radius: int) -> np.ndarray:
     for r in range(max_radius + 1):
         lut[r, : r + 1] = utils.disk_extents(r)
     return lut
+
+
+@functools.lru_cache(maxsize=None)
+def perimeter_tables(max_radius: int):
+    """Padded Bresenham perimeter offsets for every radius up to max_radius.
+
+    Returns (offsets (max_radius + 1, L, 2) int32, padded rows repeat
+    offset 0; lengths (max_radius + 1,) int32, the true perimeter lengths;
+    expected (max_radius + 1, L) float32, numpy's ``arctan2(row, col)`` of
+    each offset rounded to f32: the radial direction the roundness score
+    compares the gradient angle with).
+    """
+    tables = [utils.circle_points(r) for r in range(max_radius + 1)]
+    lengths = np.array([len(t) for t in tables], dtype=np.int32)
+    offsets = np.zeros((max_radius + 1, int(lengths.max()), 2), np.int32)
+    for r, t in enumerate(tables):
+        offsets[r, : len(t)] = t
+    expected = np.arctan2(offsets[..., 0], offsets[..., 1]).astype(np.float32)
+    return offsets, lengths, expected
 
 
 def extract_rois(image: torch.Tensor, tops: torch.Tensor, lefts: torch.Tensor,

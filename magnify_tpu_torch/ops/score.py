@@ -1,4 +1,5 @@
-"""Dense roundness scoring: int8 ring-correlation score maps.
+"""Roundness scoring: the dense detector's int8 ring-correlation score maps,
+and the RANSAC detector's unique-triple dedupe and exact perimeter scorer.
 
 The reference's per-pixel alignment score ``4*|wrap(|a - e|) - pi/2|/pi - 1``
 equals ``(8/pi^2) * sum_{k odd} cos(2k (a - e)) / k^2``, which separates the
@@ -11,7 +12,16 @@ on the space-to-depth fold, so the fold is not carried over.
 The ring kernels are built by numpy code copied from the JAX package and
 are array-equal to its tables (harmonics k <= 7, the JAX default). The
 correlation itself is the CUDA kernel ``csrc/ring_corr.cu`` for CUDA
-tensors and a float64 ``conv2d`` (exact on int8 values) for CPU tensors.
+tensors and a float ``conv2d`` in a type where it is exact on int8 values
+for CPU tensors.
+
+The RANSAC detector (``magnify_tpu.ops.score.dedupe_circles`` and
+``score_circles``) rounds its proposals to (row, col, radius) triples,
+keeps the unique ones in key order (:func:`dedupe_circles`) and scores each
+by walking its Bresenham perimeter (:func:`score_circles`): the CUDA kernel
+``csrc/perimeter_score.cu`` for CUDA tensors, :func:`score_circles_plain`
+for CPU tensors. Both sum in the order of the reference's compiled CPU
+program, so the scores are bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,8 +36,9 @@ import torch.nn.functional as F
 from magnify_tpu_torch import _build, utils
 from magnify_tpu_torch.ops.edge import fma_f32
 
-__all__ = ["RingWeights", "ring_corr", "ring_corr_plain", "ring_weights",
-           "score_maps"]
+__all__ = ["RingWeights", "dedupe_circles", "perimeter_score",
+           "raster_key_space", "ring_corr", "ring_corr_plain", "ring_weights",
+           "score_circles", "score_circles_plain", "score_maps"]
 
 _HARMONICS = (1, 3, 5, 7)
 _COEFFS = tuple(8.0 / (np.pi**2 * k**2) for k in _HARMONICS)
@@ -36,6 +47,10 @@ _COEFFS = tuple(8.0 / (np.pi**2 * k**2) for k in _HARMONICS)
 launches = 0
 #: Those of them that calls on a batch (N, C, H, W) made.
 batched_launches = 0
+#: Kernel launches of :func:`perimeter_score` since the count was last reset.
+perimeter_launches = 0
+#: Those of them that scored circles on a batch of planes.
+perimeter_batched_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,8 +148,9 @@ def _cached_tables(min_radius: int, max_radius: int, device: str):
 # Shared memory one CTA may use on sm_90 (232,448 bytes).
 _MAX_SMEM = 227 * 1024
 
-# The CPU convolution unfolds C*K*K doubles per output pixel (46 GB for a
-# 1024^2 frame's padded plane at radii 8-12): bands of rows bound it.
+# A CPU convolution may unfold C*K*K values per output pixel (46 GB of
+# doubles for a 1024^2 frame's padded plane at radii 8-12): bands of rows
+# bound it.
 _CPU_UNFOLD_BYTES = 1 << 28
 
 
@@ -144,25 +160,43 @@ _CPU_UNFOLD_BYTES = 1 << 28
 _PLAIN_BATCH_BYTES = 1 << 30
 
 
+def _exact_dtype(weights: RingWeights, device) -> torch.dtype:
+    """The float type in which a convolution of int8 features is exact.
+
+    Every product and partial sum is an integer of magnitude at most
+    ``127 * sum|w|`` of one radius; below 2^24 that is exact in float32
+    whatever the order of the sums (1.64e6 at radii 8-12, 2.12e6 at 4-15),
+    and the CPU's float32 convolution is ~25x faster than its float64 one.
+    A card keeps float64: its float32 convolutions may round operands to
+    TF32 or transform them (FFT, Winograd)."""
+    bound = 127 * int(weights.dense.to(torch.int64).abs().sum(
+        dim=(1, 2, 3)).max()) if weights.dense.numel() else 0
+    if torch.device(device).type == "cpu" and bound < 2**24:
+        return torch.float32
+    return torch.float64
+
+
 def ring_corr_plain(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
-    """float64 correlation of int8 values: every product and partial sum is
-    an integer below 2^53, so any algorithm gives the exact int32 result.
-    ``feats``: (C, H, W) or a batch (N, C, H, W)."""
+    """Float correlation of int8 values in a type where it is exact
+    (:func:`_exact_dtype`): float32 on the CPU, float64 on a card, so any
+    algorithm gives the exact int32 result. ``feats``: (C, H, W) or a batch
+    (N, C, H, W)."""
     if feats.ndim == 3:
         return ring_corr_plain(feats[None], weights)[0]
     n_r, c_in, k, _ = weights.dense.shape
     rad = k // 2
     n, _, h, w = feats.shape
-    wt = weights.dense.to(torch.float64)
+    dtype = _exact_dtype(weights, feats.device)
+    size = torch.finfo(dtype).bits // 8
+    wt = weights.dense.to(dtype)
     rows = h
     if feats.device.type == "cpu":
-        rows = max(1, _CPU_UNFOLD_BYTES // (c_in * k * k * max(w, 1) * 8))
-    per_plane = 8 * (c_in * (h + 2 * rad) * (w + 2 * rad) + n_r * h * w)
+        rows = max(1, _CPU_UNFOLD_BYTES // (c_in * k * k * max(w, 1) * size))
+    per_plane = size * (c_in * (h + 2 * rad) * (w + 2 * rad) + n_r * h * w)
     planes = max(1, _PLAIN_BATCH_BYTES // max(per_plane, 1))
     out = torch.empty((n, n_r, h, w), dtype=torch.int32, device=feats.device)
     for n0 in range(0, n, planes):
-        fp = F.pad(feats[n0:n0 + planes].to(torch.float64),
-                   (rad, rad, rad, rad))
+        fp = F.pad(feats[n0:n0 + planes].to(dtype), (rad, rad, rad, rad))
         for y0 in range(0, h, rows):
             y1 = min(h, y0 + rows)
             band = F.conv2d(fp[:, :, y0:y1 + 2 * rad], wt)
@@ -271,3 +305,243 @@ def score_maps(edges, dx, dy, *, min_radius: int, max_radius: int):
                                  str(edges.device))
     acc = ring_corr(alignment_features_q8(edges, dx, dy), weights)
     return acc.to(torch.float32) * dq[:, None, None]
+
+
+# ---------------------------------------------------------------------------
+# RANSAC: unique-triple dedupe and the exact perimeter scorer
+# ---------------------------------------------------------------------------
+
+def raster_key_space(height: int, width: int, min_radius: int,
+                     max_radius: int) -> int:
+    """Number of (row, col, radius) dedupe keys: rows and columns within
+    ``max_radius`` of the image (one more), radii ``min_radius ..
+    max_radius``."""
+    return ((height + 2 * max_radius + 1) * (width + 2 * max_radius + 1)
+            * (max_radius - min_radius + 1))
+
+
+def _round_i32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.round(x).astype(int32)`` under XLA: half to even, saturating at
+    the int32 range, NaN to 0 (torch's own cast gives -2^31 for all of
+    those). Returned as int64."""
+    r = torch.nan_to_num(torch.round(x).to(torch.float64), nan=0.0)
+    return torch.clamp(r, -2.0**31, 2.0**31 - 1).to(torch.int64)
+
+
+def _round_filter(circles, valid, *, height: int, width: int,
+                  min_radius: int, max_radius: int):
+    """Round proposals to integer triples and apply the reference's radius
+    and off-image filters. The JAX package tests the bounds in wrapping
+    int32; in int64 every test comes out the same (a saturated coordinate
+    fails one of them either way)."""
+    row, col, rad = (_round_i32(v) for v in circles)
+    ok = valid & (rad >= min_radius) & (rad <= max_radius)
+    ok &= (row + rad >= 0) & (col + rad >= 0)
+    ok &= (row - rad < height) & (col - rad < width)
+    return row, col, rad, ok
+
+
+def dedupe_circles(circles, valid, *, height: int, width: int,
+                   min_radius: int, max_radius: int, cap: int | None = None):
+    """Round, bound-filter and collapse proposals to unique triples.
+
+    ``circles``: three f32 tensors (rows, cols, radii) of shape (M,), or
+    (N, M) for a batch of planes; ``valid`` broadcasts against them. The
+    uniques come out in ascending (row, col, radius) order, the order of
+    both of the JAX package's compactions (the key raster and the sort).
+
+    Returns (uniq (n_unique, 3) int32, n_unique) for one plane, or for a
+    batch (uniq (N, cap, 3) int32 zero-padded, uvalid (N, cap) bool,
+    n_unique (N,) int64): each plane keeps its first ``cap`` uniques, as
+    the JAX package's per-chamber batch does (a static cap, no retry).
+    ``cap`` is required for a batch; one plane keeps every unique (the JAX
+    package grows its cap until they fit).
+    """
+    row, col, rad, ok = _round_filter(
+        circles, valid, height=height, width=width, min_radius=min_radius,
+        max_radius=max_radius)
+    kw = width + 2 * max_radius + 1
+    kr = max_radius - min_radius + 1
+    space = raster_key_space(height, width, min_radius, max_radius)
+    key = ((row + max_radius) * kw + (col + max_radius)) * kr + (
+        rad - min_radius)
+    batched = row.ndim == 2
+    if not batched:
+        key = torch.where(ok, key, space)
+        uk = torch.unique(key)
+        uk = uk[uk < space]
+        return _decode(uk, kw, kr, min_radius, max_radius), int(uk.numel())
+    if cap is None:
+        raise ValueError("dedupe_circles: a batch of planes needs a cap")
+    n = row.shape[0]
+    plane = torch.arange(n, device=key.device)[:, None]
+    # One sort for the batch: plane-major keys, one sentinel per plane.
+    key = plane * (space + 1) + torch.where(ok, key, space)
+    uk = torch.unique(key)
+    p, k = uk // (space + 1), uk % (space + 1)
+    live = k < space
+    p, k = p[live], k[live]
+    n_unique = torch.bincount(p, minlength=n)
+    first = torch.cumsum(n_unique, 0) - n_unique
+    rank = torch.arange(p.numel(), device=p.device) - first[p]
+    keep = rank < cap
+    uniq = torch.zeros((n, cap, 3), dtype=torch.int32, device=key.device)
+    uniq[p[keep], rank[keep]] = _decode(k[keep], kw, kr, min_radius,
+                                        max_radius)
+    uvalid = torch.arange(cap, device=key.device)[None, :] < n_unique[:, None]
+    return uniq, uvalid, n_unique
+
+
+def _decode(key, kw, kr, min_radius, max_radius):
+    yx = key // kr
+    return torch.stack([yx // kw - max_radius, yx % kw - max_radius,
+                        key % kr + min_radius], dim=1).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _perimeter_tensors(max_radius: int, device: str):
+    from magnify_tpu_torch.ops.geom import perimeter_tables
+
+    offsets, lengths, expected = perimeter_tables(max_radius)
+    return (torch.as_tensor(offsets, device=device),
+            torch.as_tensor(lengths, device=device),
+            torch.as_tensor(expected, device=device))
+
+
+def _pixel_index(circles, offsets, r, p, hp, wp):
+    rows = offsets[r, p, 0] + circles[:, 0]
+    cols = offsets[r, p, 1] + circles[:, 1]
+    return torch.clamp(rows.to(torch.int64) * wp + cols, 0, hp * wp - 1)
+
+
+def score_circles_plain(grad_angles, edges, circles, valid=None, plane=None,
+                        *, max_radius: int) -> torch.Tensor:
+    """Roundness score per circle in plain torch: the twin of
+    :func:`perimeter_score`, bit-identical to it and to the JAX package's
+    jitted ``score_circles`` on the CPU.
+
+    Per perimeter position (a Python loop over the L positions on (N,)
+    vectors): align = fma(|wrap(|a - e|) - pi/2|, f32(4/pi), -1) at edge
+    pixels, summed in XLA's CPU order (see ``csrc/perimeter_score.cu``:
+    windows of 32 positions for L > 32, 8 lanes otherwise), then divided by
+    the perimeter length. Arguments as :func:`score_circles`.
+    """
+    angles_flat = grad_angles.reshape(-1)
+    edges_flat = edges.reshape(-1)
+    hp, wp = grad_angles.shape[-2:]
+    dev = circles.device
+    offsets, lengths, expected = _perimeter_tensors(int(max_radius),
+                                                    str(dev))
+    n_pos = offsets.shape[1]
+    c = circles.to(torch.int64)
+    r = torch.clamp(c[:, 2], 0, int(max_radius))
+    n_r = lengths[r]
+    base = 0 if plane is None else plane.to(torch.int64) * (hp * wp)
+
+    def f32(v):
+        return torch.tensor(np.float32(v), device=dev)
+
+    pi, half_pi, four_over_pi = f32(np.pi), f32(np.pi / 2), f32(4 / np.pi)
+    minus_one = f32(-1.0).expand(c.shape[0])
+
+    def add_term(acc, p):
+        idx = base + _pixel_index(c, offsets, r, p, hp, wp)
+        d = torch.abs(angles_flat[idx] - expected[r, p])
+        d = torch.where(d > pi, d + (-pi), d)
+        align = fma_f32(torch.abs(d + (-half_pi)),
+                        four_over_pi.expand_as(d), minus_one)
+        hit = edges_flat[idx].to(torch.bool) & (p < n_r)
+        return torch.where(hit, acc + align, acc)
+
+    zeros = torch.zeros(c.shape[0], dtype=torch.float32, device=dev)
+    if n_pos > 32:
+        n_windows = -(-n_pos // 32)
+        lead = (n_windows * 32 - n_pos) // 2
+        total = zeros
+        for w in range(n_windows):
+            acc = zeros
+            for p in range(max(w * 32 - lead, 0),
+                           min(w * 32 - lead + 32, n_pos)):
+                acc = add_term(acc, p)
+            total = total + acc
+    else:
+        lanes = [zeros] * 8
+        for p in range(n_pos):
+            lanes[p % 8] = add_term(lanes[p % 8], p)
+        lanes = [lanes[k] + lanes[k + 4] for k in range(4)]
+        lanes = [lanes[k] + lanes[k + 2] for k in range(2)]
+        total = lanes[0] + lanes[1]
+    scores = total / n_r.to(torch.float32)
+    if valid is not None:
+        scores = torch.where(valid, scores, -torch.inf)
+    return scores
+
+
+def perimeter_score(grad_angles, edges, circles, valid=None, plane=None, *,
+                    max_radius: int) -> torch.Tensor:
+    """The CUDA kernel ``csrc/perimeter_score.cu``: one launch on the
+    current stream, no host sync. Arguments as :func:`score_circles`; every
+    tensor on one CUDA device."""
+    global perimeter_launches, perimeter_batched_launches
+    dev = circles.device
+    if dev.type != "cuda":
+        raise ValueError(f"perimeter_score: unsupported device {dev}")
+    for name, t in (("grad_angles", grad_angles), ("edges", edges)) + (
+            (("valid", valid),) if valid is not None else ()) + (
+            (("plane", plane),) if plane is not None else ()):
+        if t.device != dev:
+            raise ValueError(f"perimeter_score: {name} on {t.device}, "
+                             f"circles on {dev}")
+    if grad_angles.dtype != torch.float32 or edges.dtype != torch.bool:
+        raise TypeError("perimeter_score: f32 angles and bool edges "
+                        f"required, got {grad_angles.dtype}, {edges.dtype}")
+    if grad_angles.shape != edges.shape or grad_angles.ndim not in (2, 3):
+        raise ValueError("perimeter_score: angles and edges of one (Hp, Wp) "
+                         "or (P, Hp, Wp) shape required")
+    hp, wp = grad_angles.shape[-2:]
+    n = circles.shape[0]
+    if hp * wp >= 2**31 or n >= 2**31:
+        raise ValueError(f"perimeter_score: {n} circles on {hp}x{wp} "
+                         "planes exceed the kernel's int32 indices")
+    offsets, lengths, expected = _perimeter_tensors(int(max_radius),
+                                                    str(dev))
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    angles = grad_angles.contiguous()
+    edges_u8 = edges.contiguous().view(torch.uint8)
+    circ = circles.to(torch.int32).contiguous()
+    plane_i = None if plane is None else plane.to(torch.int32).contiguous()
+    valid_u8 = None if valid is None else \
+        valid.to(torch.bool).contiguous().view(torch.uint8)
+    err = _build.load().mg_perimeter_score(
+        angles.data_ptr(), edges_u8.data_ptr(), hp, wp, circ.data_ptr(),
+        None if plane_i is None else plane_i.data_ptr(),
+        None if valid_u8 is None else valid_u8.data_ptr(), n,
+        offsets.data_ptr(), lengths.data_ptr(), expected.data_ptr(),
+        int(max_radius), offsets.shape[1], out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    perimeter_launches += 1
+    perimeter_batched_launches += int(plane is not None)
+    _build.check(err, "mg_perimeter_score")
+    return out
+
+
+def score_circles(grad_angles, edges, circles, valid=None, plane=None, *,
+                  max_radius: int) -> torch.Tensor:
+    """Roundness score per circle (the reference's ``mean_grad``): the mean
+    perimeter alignment of the gradient angles at edge pixels.
+
+    ``grad_angles`` f32 and ``edges`` bool are padded by ``2 * max_radius``
+    on every side, one plane (Hp, Wp) or a batch (P, Hp, Wp); ``circles``
+    (N, 3) int32 (row, col, radius) are shifted by that pad; ``plane`` (N,)
+    names each circle's plane in a batch. Rows where ``valid`` is False
+    score ``-inf``. CUDA tensors launch :func:`perimeter_score`, CPU
+    tensors run :func:`score_circles_plain`; both give the JAX package's
+    scores bit for bit.
+    """
+    if circles.device.type == "cpu":
+        return score_circles_plain(grad_angles, edges, circles, valid, plane,
+                                   max_radius=max_radius)
+    return perimeter_score(grad_angles, edges, circles, valid, plane,
+                           max_radius=max_radius)

@@ -159,7 +159,8 @@ def microfluidic_chip(
     low_edge_quantile, high_edge_quantile :
         Gradient-magnitude quantiles for the Canny thresholds (0..1).
     num_iter :
-        Accepted for parity with ``magnify_tpu.microfluidic_chip``; the
+        RANSAC proposals for the whole-plane search (``detector="ransac"``;
+        each chamber's refinement gets ``num_iter // n_chambers``). The
         dense detector scores every candidate and ignores it.
     min_roundness :
         Minimum perimeter-alignment score for accepted buttons (0..1).
@@ -181,7 +182,10 @@ def microfluidic_chip(
     interactive :
         Not ported yet; True raises.
     detector :
-        "auto" or "dense" (both the dense detector); "ransac" raises.
+        "auto" or "dense" (both the dense detector), or "ransac": the JAX
+        package's unfused grid search, with Monte-Carlo circumcircle
+        proposals from seed 0 scored by the exact perimeter ("gather")
+        scorer.
     device :
         Torch device of the rotation and the button finder.
 
@@ -416,8 +420,8 @@ def beads(
     low_edge_quantile, high_edge_quantile :
         Gradient-magnitude quantiles for the Canny thresholds (0..1).
     num_iter :
-        Accepted for parity with ``magnify_tpu.beads``; the dense detector
-        scores every candidate and ignores it.
+        RANSAC proposals per search channel (``detector="ransac"``); the
+        dense detector scores every candidate and ignores it.
     min_roundness :
         Minimum perimeter-alignment score for accepted beads (0..1).
     roi_length :
@@ -433,7 +437,10 @@ def beads(
     interactive :
         Not ported yet; True raises.
     detector :
-        "auto" or "dense" (both the dense detector); "ransac" raises.
+        "auto" or "dense" (both the dense detector), or "ransac":
+        Monte-Carlo circumcircle proposals from seed 0 scored by the exact
+        perimeter ("gather") scorer, the JAX package's detector off the
+        TPU.
     device :
         Torch device of the detector ("cuda", "cuda:1", "cpu", ...).
 

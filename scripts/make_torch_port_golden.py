@@ -8,14 +8,18 @@ for frame A (1024^2, 110 beads) and frame B (2 channels, 2 x 2 tiles of
 1024^2, overlap 102) and ``magnify_tpu.mrbles`` the same way for frame M
 (4 channels x 1024^2, 108 beads of 4 codes) and
 ``magnify_tpu.microfluidic_chip`` for frame C8 (8 x 8 chambers on 900^2) and
-its 2-channel, 2-timestep variant C8V, as ``chip_smoke.py`` builds them, and
-stores for each the mark rows (y, x) in mark order and sha256 digests of fg,
-bg and roi; for frame M also the decoded tags and ``ln_vol``, for the chip
-frames the chamber tags.
+its 2-channel, 2-timestep variant C8V, as ``chip_smoke.py`` builds them;
+then frames A and C8 again with ``detector="ransac"`` at the default
+``num_iter`` (5,000,000 proposals, seed 0) and the exact perimeter scorer
+(``MAGNIFY_TPU_SCORER=gather``), under the keys ``RA_*`` and ``RC8_*``. It
+stores for each the mark rows (y, x) in mark order and sha256 digests of
+fg, bg and roi; for frame M also the decoded tags and ``ln_vol``, for the
+chip frames the chamber tags.
 The score-quantization mode is read once when magnify_tpu is imported, so
 this script sets it (and the detector) before that import, in its own
-process. Keys that the file already holds must come out unchanged: the
-script refuses to overwrite a file whose frames A, B or M would change.
+process; the detector is read per call and switches for the RANSAC frames.
+Keys that the file already holds must come out unchanged: the script
+refuses to overwrite a file whose frames A, B, M, C8 or C8V would change.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 os.environ["MAGNIFY_TPU_SCORE_QUANT"] = "int8"
 os.environ["MAGNIFY_TPU_DETECTOR"] = "dense"
+os.environ["MAGNIFY_TPU_SCORER"] = "gather"
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 os.environ.setdefault("MAGNIFY_TPU_CACHE_DIR",
                       str(ROOT / ".cache" / "golden_xla"))
@@ -57,6 +62,18 @@ def main() -> None:
             out[f"{case}_{key}"] = np.asarray(val)
         print(f"frame {case}: {len(out[f'{case}_rows'])} marks, "
               f"roi {xp['roi'].shape}")
+    os.environ["MAGNIFY_TPU_DETECTOR"] = "ransac"
+    for case, kw in (("A", chip_smoke.FRAME_A_KW),
+                     ("C8", chip_smoke.FRAME_C8_KW)):
+        data = chip_smoke.as_dataarray(mg, case)
+        if case == "C8":
+            xp = mg.microfluidic_chip(data, detector="ransac", **kw)
+        else:
+            xp = mg.beads(data, detector="ransac", **kw)
+        for key, val in chip_smoke.summarize(xp).items():
+            out[f"R{case}_{key}"] = np.asarray(val)
+        print(f"frame {case}, RANSAC: {len(out[f'R{case}_rows'])} marks, "
+              f"roi {xp['roi'].shape}")
     tags = out["M_tag"]
     print(f"frame M: true {chip_smoke.frame_m()[1]}, found {len(tags)}, "
           f"coded {int((tags != 'outlier').sum())}, outliers "
@@ -66,7 +83,7 @@ def main() -> None:
     if path.exists():
         old = np.load(path)
         for key in old.files:
-            if key.split("_")[0] not in ("A", "B", "M"):
+            if key.split("_")[0] not in ("A", "B", "M", "C8", "C8V"):
                 continue
             if not np.array_equal(old[key], out[key]):
                 raise SystemExit(f"{key} would change; the golden file was "

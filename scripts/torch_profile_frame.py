@@ -20,7 +20,16 @@ frames A (1024^2) and B (1844^2 stitched plane, 1892^2 padded features):
    copied timestep): the wall time per frame,
    the device busy time (the union of all kernel intervals, whatever thread
    or stream launched them), the idle share, and the ten kernels with the
-   most device time.
+   most device time; then the same for ``detector="ransac"`` (5,000,000
+   proposals): 3 warm ``beads()`` frames of A, 3 warm chips C8 and 2 of C;
+3. the RANSAC detector's stages as ``beads`` on frame A and
+   ``microfluidic_chip`` on frames C8 and C reach them (CUDA events around
+   each call ``ops.detect`` makes, 3 calls each after a warm-up, 2 for C):
+   ``detect_ransac`` (the whole plane) and ``detect_rois_ransac`` (the
+   chamber batch) and inside them the edge stack with the gradient angles,
+   the sampler (threefry streams, gathers, circumcircles), the unique-triple
+   dedupe, the perimeter scorer and the NMS, per input shape, with the
+   number of unique proposals.
 
 It prints the card's name and power limit first. It exits 2 without a
 CUDA device.
@@ -29,6 +38,7 @@ CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import pathlib
 import re
 import subprocess
@@ -104,6 +114,62 @@ def frame_profile(label, fn, reps=3, frames=1) -> None:
         print(f"    {us / n / 1e3:8.4f} ms  {name}", flush=True)
 
 
+# The functions of the RANSAC path, timed where ``ops.detect`` calls them.
+RANSAC_STAGES = ("detect_ransac", "detect_rois_ransac", "edge_pipeline",
+                 "candidate_circles", "dedupe_circles", "score_circles",
+                 "parallel_greedy_nms")
+
+
+def ransac_stages(label, run, reps=3) -> None:
+    """Device ms of each RANSAC stage as ``run()``, one entry-point call,
+    reaches it through ``ops.detect``: CUDA events around every call of the
+    functions in ``RANSAC_STAGES``, over ``reps`` calls after a warm-up, per
+    function and input shape, with the unique proposals the dedupes kept."""
+    import torch
+
+    import chip_smoke as cs
+    from magnify_tpu_torch.ops import detect
+
+    log = []
+
+    def timed(name):
+        def wrap(real):
+            def call(*args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = real(*args, **kw)
+                end.record()
+                if name == "score_circles":
+                    what = f"{args[2].shape[0]} circles"
+                elif name == "dedupe_circles":
+                    what = str(tuple(args[0][0].shape))
+                else:
+                    what = str(tuple(args[0].shape))
+                n_unique = out[-1] if name == "dedupe_circles" else None
+                log.append((f"{name} {what}", start, end, n_unique))
+                return out
+            return call
+        return wrap
+
+    run()
+    with contextlib.ExitStack() as stack:
+        for name in RANSAC_STAGES:
+            stack.enter_context(cs.spy(detect, name, timed(name)))
+        for _ in range(reps):
+            run()
+    torch.cuda.synchronize()
+    ms = collections.Counter()
+    n_unique = 0
+    for key, start, end, n_u in log:
+        ms[key] += start.elapsed_time(end) / reps
+        if n_u is not None:
+            n_unique += int(torch.as_tensor(n_u).sum())
+    detail = "; ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+    print(f"RANSAC stages, {label} (per call): {detail}; n_unique "
+          f"{n_unique // reps}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -158,6 +224,26 @@ def main() -> int:
     frame_profile("microfluidic_chip frame C",
                   lambda: mt.microfluidic_chip(
                       data_c, pinlist=cs.frame_c_pinlist(), device=dev,
+                      **cs.FRAME_C_KW), reps=2)
+
+    ransac = dict(detector="ransac", device=dev)
+    frame_profile("beads frame A, ransac",
+                  lambda: mt.beads(data_a, **ransac, **cs.FRAME_A_KW))
+    frame_profile("microfluidic_chip frame C8, ransac",
+                  lambda: mt.microfluidic_chip(data_c8, **ransac,
+                                               **cs.FRAME_C8_KW))
+    frame_profile("microfluidic_chip frame C, ransac",
+                  lambda: mt.microfluidic_chip(
+                      data_c, pinlist=cs.frame_c_pinlist(), **ransac,
+                      **cs.FRAME_C_KW), reps=2)
+    ransac_stages("beads frame A",
+                  lambda: mt.beads(data_a, **ransac, **cs.FRAME_A_KW))
+    ransac_stages("microfluidic_chip frame C8",
+                  lambda: mt.microfluidic_chip(data_c8, **ransac,
+                                               **cs.FRAME_C8_KW))
+    ransac_stages("microfluidic_chip frame C",
+                  lambda: mt.microfluidic_chip(
+                      data_c, pinlist=cs.frame_c_pinlist(), **ransac,
                       **cs.FRAME_C_KW), reps=2)
     return 0
 

@@ -15,7 +15,11 @@ another order in torch than in XLA). The QC filters run on the chip output
 in both packages and must give the same ``valid``. The batched per-ROI
 detector (``detect_rois_dense``) is held against ``_detect_rois_dense`` on
 nine crops of 48 and 72 pixels, circles and scores exact, an empty crop
-(score ``-inf``) included.
+(score ``-inf``) included. With ``detector="ransac"`` (the JAX package's
+unfused grid search: RANSAC per search channel, the float64 numpy grid fit
+and one RANSAC + hill-climb batch over the chamber crops) the 2 x 2, the
+3 x 3 with blanks and the 3 x 5 grids must come out equal in every
+variable, the blank chambers' float64 intersections included.
 
 The reference runs in ONE subprocess for the whole file (this file run as
 a script), for the reasons given in test_torch_slice: the quantization mode
@@ -38,6 +42,12 @@ GRID_ATOL = 1e-3
 
 KW = dict(min_button_diameter=10, max_button_diameter=18,
           chamber_diameter=40, overlap=0)
+
+
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
 
 
 def _draw(img, centers, radius, value):
@@ -103,6 +113,10 @@ def case_inputs(case):
 
 
 CASES = ("2x2", "3x3_blanks", "3x5", "2ch2t", "fixed")
+RANSAC_CASES = ("2x2", "3x3_blanks", "3x5")
+#: Whole-plane RANSAC proposals of the chip cases; each chamber gets
+#: RANSAC_ITER // n_chambers.
+RANSAC_ITER = 20000
 FILTERS = (("filter_expression", {}), ("filter_nonround", {}),
            ("filter_leaky", {}))
 
@@ -212,6 +226,21 @@ def test_chip_matches_jax_dense(reference, results, case):
             np.testing.assert_array_equal(got[key], val, err_msg=key)
 
 
+@pytest.mark.parametrize("case", RANSAC_CASES)
+def test_chip_matches_jax_ransac(reference, case):
+    import magnify_tpu_torch as mt
+
+    tag = f"ransac/{case}"
+    got = _flatten(run_case(mt, case, device="cpu", detector="ransac",
+                            num_iter=RANSAC_ITER), tag)
+    want = {k: v for k, v in reference.items() if k.startswith(tag + "/")}
+    assert sorted(got) == sorted(want)
+    assert (got[f"{tag}/tag"] != "").sum() >= 4
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
 @pytest.mark.parametrize("name", ["small", "big"])
 def test_detect_rois_dense_matches_jax(reference, name):
     from magnify_tpu_torch.ops import detect as tdetect
@@ -308,8 +337,10 @@ def test_chip_parameter_surface_and_errors():
     img = mt.DataArray(np.zeros((64, 64), np.uint16), dims=("y", "x"))
     with pytest.raises(ValueError, match="Invalid chip type"):
         mt.microfluidic_chip(img, chip_type="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.microfluidic_chip(img, detector="ransac", device="cpu")
+    with pytest.raises(ValueError, match="exceeds total_length"):
+        # The RANSAC grid search refuses the same geometry, on the host.
+        mt.microfluidic_chip(img, shape=(2, 2), detector="ransac",
+                             num_iter=1000, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.microfluidic_chip(img, interactive=True, device="cpu")
     with pytest.raises(ValueError, match="exceeds total_length"):
@@ -366,7 +397,8 @@ def test_rotate_component_matches_jax():
 
 
 if __name__ == "__main__":
-    # The reference run: the JAX package, dense detector, int8 maps.
+    # The reference run: the JAX package, dense detector, int8 maps, then
+    # the RANSAC cases.
     assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
     assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
     sys.path.insert(0, ROOT)
@@ -385,4 +417,10 @@ if __name__ == "__main__":
         circles, scores = _detect_rois_dense(rois, *ROI_ARGS, **ROI_KW)
         result[f"rois/{name}/circles"] = np.asarray(circles)
         result[f"rois/{name}/scores"] = np.asarray(scores)
+    # RANSAC with the exact perimeter scorer: the detector is read per call.
+    os.environ.update(MAGNIFY_TPU_DETECTOR="ransac",
+                      MAGNIFY_TPU_SCORER="gather")
+    for name in RANSAC_CASES:
+        xp = run_case(mg, name, detector="ransac", num_iter=RANSAC_ITER)
+        result.update(_flatten(xp, f"ransac/{name}"))
     np.savez(sys.argv[1], **result)

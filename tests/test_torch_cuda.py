@@ -5,7 +5,9 @@ Each kernel against its plain twin, bit for bit, at small shapes that
 stress the tiling (tile borders, ragged edges, chains across many tiles);
 ``beads``, ``mrbles`` and ``microfluidic_chip`` with ``device="cuda"``
 against ``device="cpu"`` on the end-to-end fixtures of test_torch_slice and
-test_torch_chip; the decode's device stages
+test_torch_chip, with the dense and the RANSAC detector; the RANSAC stages
+(threefry streams, proposals, dedupe, the perimeter scorer) against the CPU;
+the decode's device stages
 (masked reductions, lattice fit, EM, ``identify_mrbles``) against the CPU;
 and the frame streams against the single-frame calls. Without a CUDA device
 every test skips. On a machine with one (and no JAX), run:
@@ -169,6 +171,80 @@ def test_ring_corr_kernel_batch_matches_plain(cuda, radii, shape):
     assert torch.equal(got[-1], tscore.ring_corr(feats[-1], weights))
 
 
+def _score_inputs(seed, planes, hp, wp, n, max_radius):
+    rng = np.random.default_rng(seed)
+    angles = rng.uniform(-np.pi, np.pi, (planes, hp, wp)).astype(np.float32)
+    edges = rng.random((planes, hp, wp)) < 0.3
+    circles = np.stack([rng.integers(-3, hp + 3, n),
+                        rng.integers(-3, wp + 3, n),
+                        rng.integers(-1, max_radius + 2, n)],
+                       axis=1).astype(np.int32)
+    plane = rng.integers(0, planes, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    return angles, edges, circles, plane, valid
+
+
+@pytest.mark.parametrize("max_radius,planes", [(4, 1), (12, 1), (15, 1),
+                                               (15, 7), (16, 64)])
+def test_perimeter_score_kernel_matches_plain(cuda, max_radius, planes):
+    """Bit for bit: perimeters of 24 (8 lanes), 68, 88 and 92 positions
+    (windows of 32), circles that reach past the plane (clamped), radii
+    outside the table (clipped), invalid rows, a batch of planes."""
+    angles, edges, circles, plane, valid = _score_inputs(
+        max_radius, planes, 60, 70, 5000, max_radius)
+    args = [torch.as_tensor(a) for a in (angles, edges, circles)]
+    extra = [torch.as_tensor(valid),
+             torch.as_tensor(plane) if planes > 1 else None]
+    if planes == 1:
+        args[0], args[1] = args[0][0], args[1][0]
+    want = tscore.score_circles_plain(*args, *extra, max_radius=max_radius)
+    before = tscore.perimeter_launches
+    got = tscore.score_circles(*(a.to(cuda) for a in args),
+                               *(e.to(cuda) if e is not None else None
+                                 for e in extra), max_radius=max_radius)
+    assert tscore.perimeter_launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.numpy().view(np.int32))
+    # The twin is the same on the card.
+    twin = tscore.score_circles_plain(*(a.to(cuda) for a in args),
+                                      *(e.to(cuda) if e is not None else None
+                                        for e in extra),
+                                      max_radius=max_radius)
+    assert torch.equal(twin.cpu(), want)
+
+
+def test_ransac_stages_on_the_card_equal_the_cpu(cuda):
+    """Threefry streams, gradient angles, proposals and uniques: the same
+    bits on the card as on the CPU."""
+    from magnify_tpu_torch.ops import edge as tedge
+    from magnify_tpu_torch.ops import prng
+    from magnify_tpu_torch.ops import ransac as transac
+
+    key = prng.prng_key(7)
+    for fn in (lambda k: prng.randint(k, 4097, 0, 2**20 + 3),
+               lambda k: prng.uniform(k, 4097).view(torch.int32),
+               lambda k: prng.split(k, 1568)):
+        assert torch.equal(fn(key.to(cuda)).cpu(), fn(key))
+    rng = np.random.default_rng(3)
+    y = torch.as_tensor(np.round(rng.normal(0, 600, 10**5)), dtype=torch.float32)
+    x = torch.as_tensor(np.round(rng.normal(0, 600, 10**5)), dtype=torch.float32)
+    assert torch.equal(tedge.atan2_f32(y.to(cuda), x.to(cuda)).cpu(),
+                       tedge.atan2_f32(y, x))
+    masks = torch.as_tensor(rng.random((5, 64, 80)) < 0.05)
+    keys = prng.split(key, 5)
+    want, want_any = transac.candidate_circles(masks, 20, 20000, keys)
+    got, got_any = transac.candidate_circles(masks.to(cuda), 20, 20000,
+                                             keys.to(cuda))
+    assert torch.equal(got_any.cpu(), want_any)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    kw = dict(height=64, width=80, min_radius=4, max_radius=12)
+    u_want = tscore.dedupe_circles(want, want_any[:, None], cap=4096, **kw)
+    u_got = tscore.dedupe_circles(got, got_any[:, None], cap=4096, **kw)
+    for g, w in zip(u_got, u_want):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_wrappers_check_types(cuda):
     with pytest.raises(TypeError):
         thyst.hysteresis(torch.zeros((8, 8), device=cuda),
@@ -176,6 +252,11 @@ def test_wrappers_check_types(cuda):
     weights = tscore.ring_weights(tscore._ring_conv_kernel_q8(2, 3)[0], cuda)
     with pytest.raises(TypeError):
         tscore.ring_corr(torch.zeros((8, 16, 16), device=cuda), weights)
+    with pytest.raises(TypeError):
+        tscore.perimeter_score(torch.zeros((40, 40), device=cuda),
+                               torch.zeros((40, 40), device=cuda),
+                               torch.zeros((3, 3), dtype=torch.int32,
+                                           device=cuda), max_radius=8)
 
 
 @pytest.mark.parametrize("case", ["single", "two_channel", "tiled"])
@@ -185,6 +266,52 @@ def test_beads_cuda_matches_cpu(cuda, case):
 
     got = flatten(run_case(mt, case, device="cuda"), case)
     want = flatten(run_case(mt, case, device="cpu"), case)
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["single", "two_channel", "tiled",
+                                  "mrbles"])
+def test_ransac_cuda_matches_cpu(cuda, case):
+    """``detector="ransac"``: the card launches hysteresis and the
+    perimeter scorer and gives the CPU's result, every variable (the
+    MRBLE decode's f32 sums as in the dense case)."""
+    import magnify_tpu_torch as mt
+    from test_torch_slice import RANSAC_ITER, flatten, run_case
+
+    before = thyst.launches, tscore.perimeter_launches
+    got = flatten(run_case(mt, case, device="cuda", detector="ransac",
+                           num_iter=RANSAC_ITER), case)
+    assert thyst.launches > before[0]
+    assert tscore.perimeter_launches > before[1]
+    want = flatten(run_case(mt, case, device="cpu", detector="ransac",
+                            num_iter=RANSAC_ITER), case)
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        if key in ("mrbles/ln_vol", "mrbles/ln_ratio"):
+            np.testing.assert_allclose(got[key], val, rtol=1e-4, atol=1e-3,
+                                       err_msg=key)
+        else:
+            np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["2x2", "3x3_blanks", "3x5"])
+def test_ransac_chip_cuda_matches_cpu(cuda, case):
+    """The RANSAC grid search: one whole-plane detection and one batched
+    ROI detection (its proposals and the hill-climb: two scorer launches)
+    per search channel; every variable equal to the CPU's."""
+    import magnify_tpu_torch as mt
+    from test_torch_chip import RANSAC_ITER, run_case
+    from test_torch_slice import flatten
+
+    before = thyst.launches, tscore.perimeter_launches
+    got = flatten(run_case(mt, case, device="cuda", detector="ransac",
+                           num_iter=RANSAC_ITER), case)
+    assert thyst.launches - before[0] == 2 * thyst.LAUNCHES_PER_CALL
+    assert tscore.perimeter_launches - before[1] == 3
+    want = flatten(run_case(mt, case, device="cpu", detector="ransac",
+                            num_iter=RANSAC_ITER), case)
     assert sorted(got) == sorted(want)
     for key, val in want.items():
         np.testing.assert_array_equal(got[key], val, err_msg=key)

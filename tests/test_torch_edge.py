@@ -31,6 +31,12 @@ QS = (np.float32(0.1), np.float32(0.9))
 _jax_quantiles = jax.jit(jedge.histogram_quantiles)
 
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 def _planes():
     """Random uint8 planes of ~96x160, plus one plane with many ties."""
     rng = np.random.default_rng(3)

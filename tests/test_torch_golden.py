@@ -16,6 +16,12 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+import torch  # noqa: E402
+
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
 
 
 def test_frame_a_matches_golden():

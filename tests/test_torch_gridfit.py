@@ -33,6 +33,12 @@ INTERCEPT_ATOL = 1e-4  # pixels
 ROT_RTOL = 1e-4
 
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 def _t(a, dtype=None):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
 

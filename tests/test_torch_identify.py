@@ -37,6 +37,12 @@ EM_ATOL = 1e-5
 # Lattice fit
 # ----------------------------------------------------------------------
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 def lattice_points(seed, n, levels, outliers=0, rare_top=False):
     """Sorted 1-D points scattered around an affine image of a code
     lattice, the lattice's levels and how many codes use each level."""

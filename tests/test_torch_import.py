@@ -36,6 +36,12 @@ from magnify_tpu_torch.ops import score as tscore
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 def test_import_loads_neither_jax_nor_magnify_tpu():
     code = ("import sys, magnify_tpu_torch, chip_smoke\n"
             "import magnify_tpu_torch.components.identify\n"
@@ -44,6 +50,8 @@ def test_import_loads_neither_jax_nor_magnify_tpu():
             "import magnify_tpu_torch.ops.gridfit\n"
             "import magnify_tpu_torch.components.filter\n"
             "import magnify_tpu_torch.diagnostics\n"
+            "import magnify_tpu_torch.ops.prng\n"
+            "import magnify_tpu_torch.ops.ransac\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu',\n"
             "                                    'pandas'))\n"
@@ -107,12 +115,18 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
     with pytest.raises(ValueError):
         tscore.ring_corr(torch.zeros((8, 16, 16), dtype=torch.int8,
                                      device="meta"), weights)
+    with pytest.raises(ValueError):
+        tscore.score_circles(torch.zeros((40, 40), device="meta"),
+                             torch.zeros((40, 40), dtype=torch.bool,
+                                         device="meta"),
+                             torch.zeros((3, 3), dtype=torch.int32,
+                                         device="meta"), max_radius=8)
 
 
 def test_unported_options_raise():
     img = mt.DataArray(np.zeros((64, 64), np.uint16), dims=("y", "x"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.beads(img, detector="ransac", device="cpu")
+        mt.beads(img, interactive=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.beads("some/path/*.tif", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

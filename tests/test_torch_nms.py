@@ -15,6 +15,12 @@ from magnify_tpu.ops import nms as jnms
 from magnify_tpu_torch.ops import nms as tnms
 
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 def _circles(seed, n, h, w, max_radius):
     rng = np.random.default_rng(seed)
     rows = rng.integers(-max_radius, h + max_radius, n)

@@ -26,6 +26,12 @@ from magnify_tpu.ops import reduce as jreduce
 from magnify_tpu_torch.ops import reduce as treduce
 
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 def _roi_case(seed, n_marks=13, n_ch=3, side=9, empty=(2, 5)):
     """ROI stack with random masks; marks in ``empty`` have an empty fg
     mask and an empty bg mask, the others bg counts of both parities."""

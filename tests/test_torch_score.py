@@ -26,6 +26,12 @@ from tests.synth import draw_beads
 MIN_R, MAX_R = 5, 8
 
 
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
+
+
 @jax.jit
 def _jax_features(edges, dx, dy):
     return jscore._alignment_features(None, edges, grads=(dx, dy),

@@ -1,5 +1,5 @@
 """The port's ``beads`` and ``mrbles`` end to end against the JAX package's,
-exactly.
+exactly, with the dense and with the RANSAC detector.
 
 ``magnify_tpu_torch.beads(..., device="cpu")`` runs against
 ``magnify_tpu.beads(..., detector="dense")`` with int8 score maps on three
@@ -10,13 +10,19 @@ variable (``roi``, ``fg``, ``bg``, ``x``, ``y``, ``valid``, channel coords)
 must have the same dims and identical values. ``mrbles`` runs the same way
 on a two-channel 300^2 frame with five beads of two codes: every variable
 and coordinate equal, the decoded ``tag`` (an object array of ``str`` in
-both packages) and the f64 ``ln_vol``/``ln_ratio`` included.
+both packages) and the f64 ``ln_vol``/``ln_ratio`` included. The same
+four fixtures run again with ``detector="ransac"`` (``RANSAC_ITER``
+proposals per search channel, seed 0, the exact perimeter scorer) against
+the JAX package's RANSAC detector with the gather scorer: every variable
+equal.
 
 The reference runs in ONE subprocess per session (this file run as a
 script): the JAX package reads its score-quantization mode once at import,
 its CPU defaults are the bf16 scorer and the ransac detector, and its jitted
 stages cache traces per process, so an in-process run could meet a trace
-or mode left by another test file.
+or mode left by another test file. The RANSAC references come from the same
+subprocess, which switches ``MAGNIFY_TPU_DETECTOR`` (read per call) to
+"ransac" and pins ``MAGNIFY_TPU_SCORER=gather`` after the dense runs.
 """
 
 import os
@@ -24,9 +30,16 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 KW = dict(min_bead_diameter=16, max_bead_diameter=24, min_roundness=0.3)
+
+
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
 
 
 def _paint(img, positions, radii, value):
@@ -76,6 +89,10 @@ def case_inputs(case):
 
 
 CASES = ("single", "two_channel", "tiled")
+
+#: Proposals per search channel of the RANSAC cases (the JAX package's own
+#: bead tests run 100 to 20,000).
+RANSAC_ITER = 20000
 
 MRBLES_SPECTRA = "name,c1,c2\neu,1.0,0.1\ndy,0.1,1.0\n"
 MRBLES_CODES = "name,eu,dy\ncode_a,1.0,0.0\ncode_b,1.0,1.0\n"
@@ -174,8 +191,25 @@ def test_mrbles_matches_jax_dense(reference):
         np.testing.assert_array_equal(got[key], val, err_msg=key)
 
 
+@pytest.mark.parametrize("case", CASES + ("mrbles",))
+def test_matches_jax_ransac(reference, case):
+    import magnify_tpu_torch as mt
+
+    tag = f"ransac/{case}"
+    got = flatten(run_case(mt, case, device="cpu", detector="ransac",
+                           num_iter=RANSAC_ITER), tag)
+    want = {k: v for k, v in reference.items() if k.startswith(tag + "/")}
+    assert sorted(got) == sorted(want)
+    # 20,000 proposals find 2 of the 5 dim MRBLEs, in both packages.
+    assert got[f"{tag}/x"].shape[0] >= (2 if case == "mrbles" else 4)
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
 if __name__ == "__main__":
-    # The reference run: the JAX package, dense detector, int8 maps.
+    # The reference run: the JAX package, dense detector, int8 maps; then
+    # its RANSAC detector with the gather scorer.
     assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
     assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
     sys.path.insert(0, ROOT)
@@ -184,4 +218,10 @@ if __name__ == "__main__":
     result = {}
     for name in CASES + ("mrbles",):
         result.update(flatten(run_case(mg, name, detector="dense"), name))
+    os.environ.update(MAGNIFY_TPU_DETECTOR="ransac",
+                      MAGNIFY_TPU_SCORER="gather")
+    for name in CASES + ("mrbles",):
+        result.update(flatten(run_case(mg, name, detector="ransac",
+                                       num_iter=RANSAC_ITER),
+                              f"ransac/{name}"))
     np.savez(sys.argv[1], **result)

@@ -5,7 +5,10 @@ frame must equal ``beads`` / ``mrbles`` on that frame alone, bit for bit
 and in input order, through the producer thread, detection on the calling
 thread and the one-worker assembly; plus the stream's life cycle (lazy
 inputs, an abandoned generator, a producer failure) and
-``parallel.DevicePrefetcher``. The single-frame calls themselves are held
+``parallel.DevicePrefetcher``. With ``detector="ransac"`` the frames run
+the single-frame path one after another, in order, with no producer thread
+(one finder per stream, so a stream is all RANSAC or all dense); the test
+mixes frames with and without beads. The single-frame calls themselves are held
 against the JAX package in test_torch_slice.
 
 Frames are tiny (112^2 with up to four beads; 64^2 and empty where only the
@@ -30,6 +33,12 @@ KW = dict(min_bead_diameter=16, max_bead_diameter=24, overlap=0,
 SIDE = 112
 SMALL = 64
 VARS = ("x", "y", "roi", "fg", "bg", "valid")
+
+
+# One intra-op thread per test process: the suite runs several pytest
+# workers at once, and oversubscribed torch thread pools spin for the cores
+# the others need.
+torch.set_num_threads(1)
 
 
 def _paint(img, positions, value, radius=10):
@@ -71,6 +80,22 @@ def assert_same(out, ref, variables=VARS):
         a, b = np.asarray(out[var].values), np.asarray(ref[var].values)
         assert a.dtype == b.dtype and a.shape == b.shape, var
         np.testing.assert_array_equal(a, b, err_msg=var)
+
+
+def test_stream_ransac_frames_equal_single_frames():
+    """RANSAC frames run serially on the calling thread, each equal to the
+    single-frame call, in input order (an empty frame among them)."""
+    kw = dict(KW, detector="ransac", num_iter=4000)
+    frames = [make_frame(1, 3), blank_frame(), make_frame(2, 2)]
+    refs = [mt.beads(f, **kw) for f in frames]
+    before = set(stream_threads())
+    stream = mt.beads_stream(frames, **kw)
+    outs = [next(stream)]
+    assert set(stream_threads()) <= before
+    outs += list(stream)
+    assert [o.roi.sizes["mark"] for o in outs] == [3, 0, 2]
+    for out, ref in zip(outs, refs):
+        assert_same(out, ref)
 
 
 def stream_threads():
