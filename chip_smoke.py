@@ -20,7 +20,11 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    frame A's unique proposals (radii 8-12, L = 68 perimeter positions), and
    for frames C8 and C the whole-plane grid search, the chamber batch
    (64 crops of 72^2 at radii 8-16, at most 4,096 uniques each; 1,568 crops
-   at radii 4-15, at most 3,188) and its 27-neighbour hill-climb.
+   at radii 4-15, at most 3,188) and its 27-neighbour hill-climb; and on
+   random 1024^2 planes at ``max_radius`` 0, 1 and 2 (L = 1, 8, 12: sum
+   forms of their own, -0.0 scores at L = 1), each scorer call one launch
+   in the plan ``ops.score.perimeter_plan`` gives, timed with CUDA events
+   and, the kernel alone, with ``torch.profiler``.
    Batched: hysteresis on the Canny masks of the chamber crops of frame C8
    (64 x 72^2) and frame C (1,568 x 72^2), on random (N, H, W) masks with
    W in {17, 72, 130} and on a batch whose planes would join if the kernel
@@ -80,7 +84,8 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    A's shapes and the same keys with ``_frame_b`` at frame B's,
    ``bound_by``, ``max_abs_err``; the batched entries have the same keys
    with ``_rois_c8`` and ``_rois_c``; perimeter_score's record has them for
-   each of its inputs above, and its batched entry has frame C's chamber
+   each of its inputs above (``profiler_ms`` beside ``ms``, the plan of
+   each, ``redesigned``), and its batched entry has frame C's chamber
    batch under the plain keys) and, last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -598,9 +603,18 @@ def _hysteresis_record(dev, planes, rois) -> dict:
                     f"bound_share{tag}": bound_ms / k_ms})
         _say(f"hysteresis time at {tuple(s.shape)}: kernel {k_ms:.4f} ms, "
              f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    # The whole-plane and tiled forms of the TPU kernel are one kernel
+    # here; the random 2048^2 and 4096^2 masks time it past the whole-plane
+    # form's size.
     for name, s, w, _ in cases[2:4]:
         kn = _event_ms(lambda: hyst.hysteresis(s, w), 20)
-        _say(f"hysteresis time on {name}: kernel {kn:.4f} ms")
+        pn = _event_once_ms(lambda: hyst.hysteresis_plain(s, w))
+        bn, _by = _bound(3 * s.numel(), 0)
+        tag = "_" + name.replace(" ", "").replace("^2", "")
+        rec.update({f"ms{tag}": kn, f"plain_ms{tag}": pn,
+                    f"bound_ms{tag}": bn, f"bound_share{tag}": bn / kn})
+        _say(f"hysteresis time on {name}: kernel {kn:.4f} ms, plain "
+             f"{pn:.4f} ms (one call), bound {bn:.5f} ms (bytes)")
     rec["library_ms"] = None  # no single PyTorch call computes it
     return rec
 
@@ -724,25 +738,33 @@ def _scorer_calls(run) -> list:
     return calls
 
 
-def _perimeter_work(grad_angles, edges, circles, valid, plane,
-                    max_radius) -> tuple:
+def _perimeter_work(grad_angles, edges, circles, valid, max_radius,
+                    pad) -> tuple:
     """What the scorer must touch for these inputs: the valid circles, the
     edge pixels on their perimeters (where it does its float32 arithmetic),
     the distinct pixels on their perimeters (whose edge flag it reads) and
-    the distinct edge pixels among them (whose angle it reads)."""
+    the distinct edge pixels among them (whose angle it reads). Counted on
+    the planes padded by ``pad``, where the reference reads them: the
+    padding adds no edge pixels and its pixels are counted as the reference
+    reads them."""
     import torch
+    import torch.nn.functional as F
 
     from magnify_tpu_torch.ops import score
 
     offsets, lengths, _e = score._perimeter_tensors(max_radius,
                                                     str(circles.device))
-    c = circles.to(torch.int64)
+    c = circles.reshape(-1, 3).to(torch.int64)
     r = torch.clamp(c[:, 2], 0, max_radius)
-    hp, wp = edges.shape[-2:]
-    base = 0 if plane is None else plane.to(torch.int64) * (hp * wp)
-    flat = edges.reshape(-1)
+    padded = F.pad(edges, (pad,) * 4)
+    hp, wp = padded.shape[-2:]
+    base = 0
+    if circles.ndim == 3:
+        base = torch.arange(circles.shape[0], device=c.device
+                            ).repeat_interleave(circles.shape[1]) * (hp * wp)
+    flat = padded.reshape(-1)
     live = (torch.ones_like(r, dtype=torch.bool) if valid is None
-            else valid.to(torch.bool))
+            else valid.reshape(-1).to(torch.bool))
     seen = torch.zeros_like(flat)
     hits = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
     for p in range(offsets.shape[1]):
@@ -766,17 +788,78 @@ SCORER_CALLS = {
 }
 
 
+def _small_radius_calls(dev) -> list:
+    """The scorer at ``max_radius`` 0, 1 and 2 (perimeters of 1, 8 and 12
+    positions, whose sum forms differ from the larger radii's): random
+    angles and edges (30% edges) on a 1024^2 plane padded by 2 * max_radius
+    and 200,000 random circles, reaching 3 pixels past the padded plane,
+    with radii -1 .. max_radius + 1 and 10% invalid."""
+    import torch
+
+    calls = []
+    for max_r in (0, 1, 2):
+        rng = np.random.default_rng(100 + max_r)
+        h = w = TILE
+        pad = 2 * max_r
+        n = 200_000
+        angles = rng.uniform(-np.pi, np.pi, (h, w)).astype(np.float32)
+        circles = np.stack([rng.integers(-3, h + 2 * pad + 3, n),
+                            rng.integers(-3, w + 2 * pad + 3, n),
+                            rng.integers(-1, max_r + 2, n)],
+                           axis=1).astype(np.int32)
+        calls.append((f"_r{max_r}", f"random 1024^2 plane at max_radius "
+                      f"{max_r}", dict(
+                          grad_angles=torch.as_tensor(angles).to(dev),
+                          edges=torch.as_tensor(rng.random((h, w)) < 0.3
+                                                ).to(dev),
+                          circles=torch.as_tensor(circles).to(dev),
+                          valid=torch.as_tensor(rng.random(n) < 0.9).to(dev),
+                          max_radius=max_r, pad=pad)))
+    return calls
+
+
+def _profiled_kernel_ms(fn, reps: int) -> tuple:
+    """Device time of one launch of the scorer's kernel, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up call (the
+    mean over the launches it recorded; it may drop some when calls come
+    this fast): (ms, launches recorded), or (None, 0) if it recorded no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if "perimeter" not in evt.key:
+            continue
+        us += getattr(evt, "device_time_total", None) or getattr(
+            evt, "cuda_time_total", 0.0)
+        count += evt.count
+    if us <= 0 or count == 0:
+        return None, 0
+    return us / 1e3 / count, count
+
+
 def _perimeter_record(dev) -> dict:
     """perimeter_score against score_circles_plain on the card, bit for
-    bit, on every input the RANSAC main paths give it: ``beads`` on frame
+    bit, on every input the RANSAC main paths give it (``beads`` on frame
     A and ``microfluidic_chip`` on frames C8 and C at the default
-    ``num_iter``, their scorer calls taken from one run of each (its
-    launches are not a main path's). Each timed with CUDA events beside the
-    twin; its bound from the bytes it must move (valid flags and scores of
-    every circle, the valid circles and their plane indices, the edge flag
-    of each distinct perimeter pixel and the angle of each distinct edge
-    pixel among them, each once) and its float32 operations (6 at each edge
-    pixel of a perimeter, one division per valid circle)."""
+    ``num_iter``, their scorer calls taken from one run of each; its
+    launches are not a main path's) and on three random planes at
+    ``max_radius`` 0-2, one launch each in the plan
+    :func:`magnify_tpu_torch.ops.score.perimeter_plan` gives. Each timed with
+    CUDA events (50 back-to-back calls) and, kernels only, with
+    ``torch.profiler`` (20 calls), beside the twin; its bound from the
+    bytes it must move (valid flags and scores of every circle, the valid
+    circles and their plane indices, the edge flag of each distinct
+    perimeter pixel and the angle of each distinct edge pixel among them,
+    each once) and its float32 operations (6 at each edge pixel of a
+    perimeter, one division per valid circle)."""
     import torch
 
     import magnify_tpu_torch as mt
@@ -793,59 +876,73 @@ def _perimeter_record(dev) -> dict:
     }
     rec = {"name": "perimeter_score", "route": "cuda",
            "source": "magnify_tpu_torch/csrc/perimeter_score.cu",
-           "replaces": "magnify_tpu/ops/score.py:671",
-           "launches_per_call": 1, "library_ms": None}
-    err = 0.0
+           "replaces": "magnify_tpu/ops/score.py:671", "redesigned": "PR 6",
+           "launches_per_call": 1, "plan": {}, "library_ms": None}
+    inputs = []
     for frame, run in runs.items():
         calls = _scorer_calls(run)
         if len(calls) != len(SCORER_CALLS[frame]):
             raise AssertionError(f"perimeter_score: frame {frame} made "
                                  f"{len(calls)} scorer calls")
         for (tag, name), args in zip(SCORER_CALLS[frame], calls):
-            circles, plane = args["circles"], args["plane"]
-            n = circles.shape[0]
-            max_r = args["max_radius"]
-            n_pos = score._perimeter_tensors(max_r, str(dev))[0].shape[1]
-            before = score.perimeter_launches
-            got = score.score_circles(**args)
-            if score.perimeter_launches != before + 1:
-                raise AssertionError("perimeter_score: one launch per call "
-                                     "expected")
-            want = score.score_circles_plain(**args)
-            torch.cuda.synchronize()
-            bits_got, bits_want = got.view(torch.int32), want.view(torch.int32)
-            if not torch.equal(bits_got, bits_want):
-                bad = int((bits_got != bits_want).sum())
-                raise AssertionError(f"perimeter_score != plain twin on "
-                                     f"{name}: {bad} of {n} scores differ")
-            fin = torch.isfinite(want)
-            if bool(fin.any()):
-                err = max(err, float((got[fin] - want[fin]).abs().max()))
-            k_ms = _event_ms(lambda: score.score_circles(**args), 50)
-            p_ms = _event_ms(lambda: score.score_circles_plain(**args), 3)
-            angles = args["grad_angles"]
-            n_valid, hits, touched, touched_edges = _perimeter_work(
-                angles, args["edges"], circles, args["valid"], plane, max_r)
-            n_bytes = (n * (4 + (args["valid"] is not None))
-                       + n_valid * (12 + 4 * (plane is not None))
-                       + touched + 4 * touched_edges)
-            bound_ms, bound_by = _bound(n_bytes, 6 * hits + n_valid,
-                                        F32_OPS_PER_S)
-            rec.update({f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
-                        f"bound_ms{tag}": bound_ms, "bound_by": bound_by,
-                        f"bound_share{tag}": bound_ms / k_ms,
-                        f"n_circles{tag}": n, f"L{tag}": n_pos})
-            n_planes = 1 if plane is None else angles.shape[0]
-            _say(f"perimeter_score == plain on {name}: N = {n} circles "
-                 f"({n_valid} valid) on {n_planes} plane(s) of "
-                 f"{tuple(angles.shape[-2:])} (pad {2 * max_r} included), "
-                 f"L = {n_pos} positions, {hits} edge hits, {touched} "
-                 f"perimeter pixels ({touched_edges} edges); kernel "
-                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} "
-                 f"ms ({bound_by}), share {bound_ms / k_ms:.4f}; no single "
-                 "PyTorch call computes it")
-            del got, want
-        del calls
+            inputs.append((frame, tag, name, args))
+    inputs += [(None, tag, name, args)
+               for tag, name, args in _small_radius_calls(dev)]
+    err = 0.0
+    for frame, tag, name, args in inputs:
+        circles, max_r, pad = args["circles"], args["max_radius"], args["pad"]
+        n = int(np.prod(circles.shape[:-1]))
+        n_pos = score._perimeter_tensors(max_r, str(dev))[0].shape[1]
+        plan, chunk, split = score.perimeter_plan(
+            args["grad_angles"], circles, max_radius=max_r)
+        before = score.perimeter_launches
+        got = score.score_circles(**args)
+        if score.perimeter_launches != before + 1:
+            raise AssertionError("perimeter_score: one launch per call "
+                                 f"expected on {name}")
+        want = score.score_circles_plain(**args)
+        torch.cuda.synchronize()
+        bits_got, bits_want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(bits_got, bits_want):
+            bad = int((bits_got != bits_want).sum())
+            raise AssertionError(f"perimeter_score != plain twin on "
+                                 f"{name}: {bad} of {n} scores differ")
+        fin = torch.isfinite(want)
+        if bool(fin.any()):
+            err = max(err, float((got[fin] - want[fin]).abs().max()))
+        k_ms = _event_ms(lambda: score.score_circles(**args), 50)
+        prof_ms, prof_launches = _profiled_kernel_ms(
+            lambda: score.score_circles(**args), 20)
+        p_ms = _event_ms(lambda: score.score_circles_plain(**args), 3)
+        angles, valid = args["grad_angles"], args["valid"]
+        n_valid, hits, touched, touched_edges = _perimeter_work(
+            angles, args["edges"], circles, valid, max_r, pad)
+        n_bytes = (n * (4 + (valid is not None))
+                   + n_valid * (12 + 4 * (circles.ndim == 3))
+                   + touched + 4 * touched_edges)
+        bound_ms, bound_by = _bound(n_bytes, 6 * hits + n_valid,
+                                    F32_OPS_PER_S)
+        key = tag or "_frame_a"
+        rec["plan"][key] = plan
+        rec.update({f"ms{tag}": k_ms, f"profiler_ms{tag}": prof_ms,
+                    f"plain_ms{tag}": p_ms, f"bound_ms{tag}": bound_ms,
+                    "bound_by": bound_by,
+                    f"bound_share{tag}": bound_ms / k_ms,
+                    f"n_circles{tag}": n, f"L{tag}": n_pos})
+        n_planes = angles.shape[0] if angles.ndim == 3 else 1
+        _say(f"perimeter_score == plain on {name}: N = {n} circles "
+             f"({n_valid} valid) on {n_planes} plane(s) of "
+             f"{tuple(angles.shape[-2:])} (pad {pad} not stored), L = "
+             f"{n_pos} positions, {hits} edge hits, {touched} perimeter "
+             f"pixels ({touched_edges} edges); plan {plan} ({chunk} circles "
+             f"per warp chunk, {split} block(s) per plane); kernel "
+             f"{k_ms:.4f} ms (CUDA events), {prof_ms} ms on the device "
+             f"(profiler, the kernel alone, mean of the {prof_launches} "
+             "launches it recorded of 20), "
+             f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+             f"share {bound_ms / k_ms:.4f}; no single PyTorch call "
+             "computes it")
+        del got, want
     rec["max_abs_err"] = err
     return rec
 

@@ -6,138 +6,491 @@
 //                        are edge pixels of 4 * |wrap(|a_p - e_p|) - pi/2| / pi - 1
 //
 // with a_p the gradient angle at p and e_p the radial direction of p's
-// offset (wrap(d) = d - pi where d > pi). The planes are padded by 2 * R on
-// every side, so every perimeter pixel of a circle that touches the image
-// lies inside; a pixel index is clamped into the plane all the same.
+// offset (wrap(d) = d - pi where d > pi).
 //
 // Replaces: magnify_tpu/ops/score.py:score_circles (:671, an XLA gather and
 // sum, not a Pallas kernel). PyTorch has no op that sums in a fixed order,
-// and its gather form materializes (N, L) temporaries (at 5e6 proposals a
-// plane holds ~1e5 unique circles: tens of MB per temporary).
+// and its gather form materializes (N, L) temporaries.
+//
+// Planes: the kernel reads the UNPADDED (H, W) or (P, H, W) angles (f32)
+// and edges (uint8 0/1), while circles are in the coordinates of the
+// planes padded by `pad` (the reference pads by 2 * max_radius). A
+// perimeter pixel is found as the reference finds it: the flat index
+// (o_r + row) * wp + (o_c + col) into the padded plane (hp = H + 2 pad,
+// wp = W + 2 pad), clamped to [0, hp * wp - 1] (so a column past the edge
+// wraps into the next row), decoded to (pr, pc); it is an edge only inside
+// the unpadded plane, and its angle there is the plane's, else 0.
 //
 // Exactness: the reference is the JAX package's jitted CPU program, and its
 // sum order is that of XLA's CPU backend, read from the optimized HLO and
-// LLVM IR:
+// LLVM IR (XLA_FLAGS=--xla_dump_to=...) at every perimeter length L (the
+// padded positions: 1, 8, 12, 16, 24, 32, then 36 and up):
 //   * the per-pixel term is align * hit, with align = fma(|d - pi/2|,
 //     f32(4/pi), -1): XLA folds "4 * x / pi" into "x * f32(4/pi)" and LLVM
-//     contracts the "- 1" into the multiply;
-//   * a perimeter of L > 32 padded positions is summed as XLA's tree
-//     reduction rewrites it: zero-padded to W = ceil(L / 32) windows of 32
-//     (pad (32 W - L) / 2 in front), each window summed in order from +0,
-//     then the W window sums in order from +0;
-//   * L <= 32 (radii below 6) is reduced by one 8-wide vector: lane j sums
-//     positions j, j + 8, ... in order, then the lanes are halved 8 -> 4 -> 2
-//     -> 1 (lanes i and i + 4, then i and i + 2, then 0 and 1);
+//     contracts the "- 1" into the multiply; a position past n_r is a
+//     select to +0;
+//   * L = 1 (max_radius 0): the score IS the one term, align * hit, with no
+//     sum started from +0 (the division by n = 1 is folded away), so a
+//     non-edge pixel whose align is negative scores -0.0;
+//   * L = 8 and 12 (max_radius 1, 2): one sum in position order from +0 (a
+//     scalar loop, unrolled, not vectorized);
+//   * L = 16 to 32 (max_radius 3-5): one 8-wide vector: lane j sums
+//     positions j, j + 8, ... in order, then the lanes are halved 8 -> 4 ->
+//     2 -> 1 (lanes i and i + 4, then i and i + 2, then 0 and 1);
+//   * L > 32: zero-padded to W = ceil(L / 32) windows of 32 (pad
+//     (32 W - L) / 2 in front), each window summed in order from +0, then
+//     the W window sums in order from +0;
 //   * the sum is divided by n_r, correctly rounded.
-// Every operation here is one explicitly rounded intrinsic (__fadd_rn,
-// __fmaf_rn, __fdiv_rn), so nvcc contracts nothing behind our back. A
-// padded or non-edge position adds +0, which leaves a sum that started at +0
-// unchanged, so it is skipped.
+// Every operation on the summed path is one explicitly rounded intrinsic
+// (__fadd_rn, __fsub_rn, __fmaf_rn, __fmul_rn, __fdiv_rn), so nvcc
+// contracts nothing. A non-edge or padded position adds nothing to a sum
+// started at +0 (a +0 or -0 term leaves it as it is), so every sum skips
+// them; only L = 1 computes the signed product.
 //
-// Design: one thread per circle; the circle walks its radius's offsets in
-// order, reading the offset, length and expected-angle tables through the
-// read-only cache (at radius 15 they are 17 x 88 entries, shared by every
-// thread). The scores of a batch of planes (the chip path's chamber crops)
-// go through one launch: circle i reads plane plane[i].
+// What bounds it: bytes. Per call it must read each valid circle, the edge
+// flag of each distinct perimeter pixel and the angle of each distinct edge
+// pixel among them, and write one score per circle (chip_smoke.py::
+// _perimeter_work); its float work is 6 operations per edge hit.
+//
+// What held the first design back (one thread per circle, walking its L
+// positions in order): each position was an edge load, a branch on it, then
+// an angle load, so every call cost about L x two dependent memory
+// latencies (40-60 us however few circles), and the caller built
+// zero-padded copies of both planes around every call.
+//
+// This design:
+//   * lanes over positions, along the reduction's own partial sums: the
+//     positions of a circle are spread over G lanes, each lane folding its
+//     share in order, loads of 4 positions in flight before any is used,
+//     and the shares are combined in XLA's order by shuffles. For L > 32,
+//     G = ceil(W / 2): lane g folds window g and window W - 1 - g (the
+//     lanes' shares then come out about even) and the circle's first lane
+//     adds the W window sums in order; for L = 16-32, G = 8, lane j folds
+//     positions j, j + 8, ... and the 8 lane sums are halved by shuffles;
+//     for L <= 12, one lane (one sum in order; the single term). A warp
+//     takes 32 rows, keeps the valid circles, and scores 32 / G at a time;
+//   * shared-memory tiles where circles are dense: a batch of planes whose
+//     circles read at least 8 perimeter positions per pixel (the chip
+//     path's chamber crops, 72^2, ~3,000-4,000 rows each) takes 4-8 blocks
+//     a plane, each staging the plane (angles and edge bytes) and the
+//     perimeter table by cp.async (16-byte copies of each contiguous range,
+//     its ragged ends by plain loads); every circle of the plane then reads
+//     shared memory;
+//   * direct reads elsewhere (one plane; the hill-climb's 27 circles a
+//     plane): every pixel from device memory, the table in shared memory,
+//     warps taking as few circles each as fill the card;
+//   * pixels without the pad: a circle whose perimeter lies inside the
+//     unpadded plane reads centre pixel + dy * w + dx; one inside the padded
+//     plane checks each pixel against the unpadded one (outside: a pad
+//     pixel); any other (only a hill-climb neighbour can be) finds each
+//     pixel as the reference does, clamped flat index and all;
+//   * no padded copies: the planes are read as they are.
+// One launch per call; the wrapper (ops/score.py::perimeter_plan) picks the
+// plan from the shapes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDirectWarps = 4;
+constexpr int kBatchWarps = 8;
+constexpr int kUnroll = 4;  // positions a lane loads at once
 
-__device__ __forceinline__ float term(float acc, const float* angles,
-                                      const uint8_t* edges, long long idx,
-                                      float expected) {
-  if (!edges[idx]) return acc;
+enum Form { kOne = 0, kSeq = 1, kLanes8 = 2, kWindows = 3 };
+enum Mode { kDirect = 0, kBatch = 1 };
+
+struct Params {
+  const float* angles;
+  const uint8_t* edges;
+  int h, w, pad, hp, wp;
+  const int* circles;
+  const uint8_t* valid;
+  int n, per_plane;
+  // (max_radius + 1, L) entries {dy << 16 | dx & 0xffff, expected's bits}.
+  const int2* offsets;
+  const int* lengths;
+  int max_radius, L, form, n_windows, lead;
+  float* out;
+};
+
+__device__ __forceinline__ float align_of(float a, float expected) {
   const float kPi = __int_as_float(0x40490FDB);          // f32(pi)
   const float kHalfPi = __int_as_float(0x3FC90FDB);      // f32(pi / 2)
   const float kFourOverPi = __int_as_float(0x3FA2F983);  // f32(4 / pi)
-  float d = fabsf(__fsub_rn(__ldg(angles + idx), expected));
+  float d = fabsf(__fsub_rn(a, expected));
   if (d > kPi) d = __fadd_rn(d, -kPi);
-  const float a0 = fabsf(__fadd_rn(d, -kHalfPi));
-  return __fadd_rn(acc, __fmaf_rn(a0, kFourOverPi, -1.0f));
+  return __fmaf_rn(fabsf(__fadd_rn(d, -kHalfPi)), kFourOverPi, -1.0f);
 }
 
-__global__ void __launch_bounds__(kThreads) perimeter_score_kernel(
-    const float* __restrict__ angles, const uint8_t* __restrict__ edges,
-    int hp, int wp, const int* __restrict__ circles,
-    const int* __restrict__ plane, const uint8_t* __restrict__ valid, int n,
-    const int2* __restrict__ offsets, const int* __restrict__ lengths,
-    const float* __restrict__ expected, int max_radius, int L,
-    float* __restrict__ out) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  if (valid != nullptr && !valid[i]) {
-    out[i] = -__int_as_float(0x7F800000);
-    return;
+// The term of one perimeter position from its edge byte and angle.
+__device__ __forceinline__ float term_of(const Params& P, uint8_t e, float a,
+                                         float expected) {
+  if (P.form == kOne)  // the product itself: -0.0 where align < 0, no edge
+    return __fmul_rn(align_of(a, expected), e ? 1.0f : 0.0f);
+  return e ? align_of(a, expected) : 0.0f;
+}
+
+// Any perimeter pixel, as the reference finds it: (pr, pc) in the padded
+// plane, its flat index clamped into that plane; outside the unpadded plane
+// it is no edge and its angle is 0. Read from device memory.
+__device__ float far_term(const Params& P, int plane, long long pr,
+                          long long pc, float expected) {
+  if (pr < 0 || pr >= P.hp || pc < 0 || pc >= P.wp) {
+    const long long last = (long long)P.hp * P.wp - 1;
+    long long flat = pr * P.wp + pc;
+    flat = flat < 0 ? 0 : (flat > last ? last : flat);
+    pr = flat / P.wp;
+    pc = flat - pr * P.wp;
   }
-  const int row = circles[3 * i], col = circles[3 * i + 1];
-  const int r = min(max(circles[3 * i + 2], 0), max_radius);
-  const int len = __ldg(lengths + r);
-  const int2* offs = offsets + (long long)r * L;
-  const float* expect = expected + (long long)r * L;
-  const long long plane_size = (long long)hp * wp;
-  const long long base = plane != nullptr ? plane[i] * plane_size : 0;
-  const float* a = angles + base;
-  const uint8_t* e = edges + base;
+  const int y = (int)pr - P.pad, x = (int)pc - P.pad;
+  uint8_t e = 0;
+  float a = 0.0f;
+  if (y >= 0 && y < P.h && x >= 0 && x < P.w) {
+    const long long i = ((long long)plane * P.h + y) * P.w + x;
+    e = P.edges[i];
+    if (e || P.form == kOne) a = P.angles[i];
+  }
+  return term_of(P, e, a, expected);
+}
 
-  auto pixel = [&](int p) -> long long {
-    const int2 o = __ldg(offs + p);
-    const long long idx = (long long)(o.x + row) * wp + (o.y + col);
-    return min(max(idx, 0LL), plane_size - 1);
-  };
+// Lanes that score one circle: kWindows pairs window g with window W - 1 - g
+// in lane g, so that the lanes' shares of a perimeter are about even.
+__host__ __device__ constexpr int lanes_per_circle(int form, int n_windows) {
+  return form == kWindows ? (n_windows + 1) / 2 : form == kLanes8 ? 8 : 1;
+}
 
-  float total = 0.0f;
-  if (L > 32) {
-    const int n_windows = (L + 31) / 32;
-    const int lead = (n_windows * 32 - L) / 2;
-    for (int w = 0; w < n_windows; ++w) {
-      float acc = 0.0f;
-      const int p0 = max(w * 32 - lead, 0);
-      const int p1 = min(w * 32 - lead + 32, len);
-      for (int p = p0; p < p1; ++p)
-        acc = term(acc, a, e, pixel(p), __ldg(expect + p));
-      total = __fadd_rn(total, acc);
-    }
+// Per-warp shared memory: the chunk's valid circles.
+struct WarpSmem {
+  int4 circ[32];  // {row, col, radius, circle index}
+};
+
+__host__ __device__ constexpr int batch_fixed_smem() {
+  return (int)((kBatchWarps * sizeof(WarpSmem) + 15) / 16 * 16);
+}
+
+// Where a circle's perimeter pixels are: kInterior, all inside the
+// unpadded plane (pixel = centre pixel + dy * w + dx); kPadded, all inside
+// the padded plane (a pixel outside the unpadded one is a pad pixel: no
+// edge, angle 0); kFar, some outside it (far_term).
+enum Where { kInterior = 0, kPadded = 1, kFar = 2 };
+
+struct Circle {
+  int row, col, r, plane, where, base;  // base: the centre pixel (interior)
+};
+
+// The term at position p of circle C, from E / A (plane C.plane - plane0
+// at pitch w: shared memory when the plane is staged).
+template <bool kStaged>
+__device__ __forceinline__ float position_term(const Params& P,
+                                               const int2* offsets,
+                                               const uint8_t* E,
+                                               const float* A,
+                                               const Circle& C, int plane0,
+                                               int p) {
+  const int2 tb = offsets[C.r * P.L + p];
+  const int dy = tb.x >> 16, dx = (int)(short)(tb.x & 0xffff);
+  const float expected = __int_as_float(tb.y);
+  int pix;
+  if (C.where == kInterior) {
+    pix = C.base + dy * P.w + dx;
+  } else if (C.where == kPadded) {
+    const int y = C.row - P.pad + dy, x = C.col - P.pad + dx;
+    if ((unsigned)y >= (unsigned)P.h || (unsigned)x >= (unsigned)P.w)
+      return term_of(P, 0, 0.0f, expected);  // a pad pixel
+    pix = ((C.plane - plane0) * P.h + y) * P.w + x;
   } else {
-    float lane[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int p = 0; p < len; ++p)
-      lane[p & 7] = term(lane[p & 7], a, e, pixel(p), __ldg(expect + p));
-    for (int k = 0; k < 4; ++k) lane[k] = __fadd_rn(lane[k], lane[k + 4]);
-    for (int k = 0; k < 2; ++k) lane[k] = __fadd_rn(lane[k], lane[k + 2]);
-    total = __fadd_rn(lane[0], lane[1]);
+    return far_term(P, C.plane, (long long)C.row + dy, (long long)C.col + dx,
+                    expected);
   }
-  out[i] = __fdiv_rn(total, (float)len);
+  const uint8_t e = E[pix];
+  return term_of(P, e, e || kStaged || P.form == kOne ? A[pix] : 0.0f,
+                 expected);
+}
+
+// Sum, in order from +0, of the terms at positions p0, p0 + step, ... < p1.
+// A non-edge position adds nothing to such a sum, so only edge positions
+// are added: for an interior circle a lane loads the edge bytes of kUnroll
+// positions at once and then, in order, the angle and term of each edge.
+template <bool kStaged>
+__device__ __forceinline__ float fold_positions(
+    const Params& P, const int2* offsets, const uint8_t* E, const float* A,
+    const Circle& C, int plane0, int p0, int p1, int step) {
+  float acc = 0.0f;
+  if (C.where != kInterior) {
+    for (int p = p0; p < p1; p += step)
+      acc = __fadd_rn(acc, position_term<kStaged>(P, offsets, E, A, C,
+                                                  plane0, p));
+    return acc;
+  }
+  const int2* row = offsets + C.r * P.L;
+  for (int p = p0; p < p1; p += step * kUnroll) {
+    int pix[kUnroll];
+    float ex[kUnroll];
+    bool e[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int q = p + u * step;
+      const int2 tb = row[q < p1 ? q : p0];
+      pix[u] = C.base + (tb.x >> 16) * P.w + (int)(short)(tb.x & 0xffff);
+      ex[u] = __int_as_float(tb.y);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      e[u] = p + u * step < p1 && E[pix[u]];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (e[u]) acc = __fadd_rn(acc, align_of(A[pix[u]], ex[u]));
+  }
+  return acc;
+}
+
+// The positions of window w (slot k is position 32 w - lead + k) of a
+// perimeter of len positions: [first, last).
+__device__ __forceinline__ int2 window_range(const Params& P, int w,
+                                             int len) {
+  return make_int2(max(32 * w - P.lead, 0), min(32 * w - P.lead + 32, len));
+}
+
+// One warp scores up to 32 circles: lane l brings circle `idx` (-1: none).
+// Invalid ones get -inf. The valid ones go in passes of 32 / G circles, G
+// lanes each, the lanes of a circle taking the partial sums of XLA's
+// reduction (the header's list).
+template <bool kStaged>
+__device__ __forceinline__ void score_chunk(const Params& P, int idx,
+                                            WarpSmem& ws, const uint8_t* E,
+                                            const float* A, int plane0,
+                                            const int2* offsets) {
+  const int lane = threadIdx.x & 31;
+  const bool ok = idx >= 0 && (P.valid == nullptr || P.valid[idx]);
+  if (idx >= 0 && !ok) P.out[idx] = -__int_as_float(0x7F800000);
+  const unsigned mask = __ballot_sync(kFull, ok);
+  if (ok) {
+    const int* c = P.circles + 3LL * idx;
+    ws.circ[__popc(mask & ((1u << lane) - 1u))] =
+        make_int4(c[0], c[1], min(max(c[2], 0), P.max_radius), idx);
+  }
+  __syncwarp();
+  const int nv = __popc(mask), W = P.n_windows;
+  const int G = lanes_per_circle(P.form, W);
+  const int per_pass = 32 / G, c = lane / G, sub = lane - c * G;
+  for (int s = 0; s < nv; s += per_pass) {
+    const bool mine = c < per_pass && s + c < nv;
+    float acc = 0.0f, acc2 = 0.0f;
+    int len = 1, ci = -1;
+    if (mine) {
+      const int4 cr = ws.circ[s + c];
+      ci = cr.w;
+      len = __ldg(P.lengths + cr.z);
+      Circle C;
+      C.row = cr.x;
+      C.col = cr.y;
+      C.r = cr.z;
+      C.plane = ci / P.per_plane;
+      // r bounds every offset of the clipped radius.
+      const long long y = (long long)C.row - P.pad, x = (long long)C.col -
+                                                        P.pad;
+      C.where = y - C.r >= 0 && y + C.r < P.h && x - C.r >= 0 &&
+                        x + C.r < P.w
+                    ? kInterior
+                : y + P.pad - C.r >= 0 && y + P.pad + C.r < P.hp &&
+                        x + P.pad - C.r >= 0 && x + P.pad + C.r < P.wp
+                    ? kPadded
+                    : kFar;
+      C.base = C.where == kInterior
+                   ? (int)(((C.plane - plane0) * P.h + y) * P.w + x)
+                   : 0;
+      if (P.form == kOne) {
+        acc = position_term<kStaged>(P, offsets, E, A, C, plane0, 0);
+      } else if (P.form == kWindows) {
+        const int2 r1 = window_range(P, sub, len);
+        acc = fold_positions<kStaged>(P, offsets, E, A, C, plane0, r1.x,
+                                      r1.y, 1);
+        if (W - 1 - sub != sub) {
+          const int2 r2 = window_range(P, W - 1 - sub, len);
+          acc2 = fold_positions<kStaged>(P, offsets, E, A, C, plane0, r2.x,
+                                         r2.y, 1);
+        }
+      } else {
+        const int p0 = P.form == kLanes8 ? sub : 0;
+        acc = fold_positions<kStaged>(P, offsets, E, A, C, plane0, p0, len,
+                                      P.form == kLanes8 ? 8 : 1);
+      }
+    }
+    // Combine a circle's partial sums in XLA's order, in its lane 0.
+    float total = acc;
+    if (P.form == kLanes8) {
+#pragma unroll
+      for (int d = 4; d > 0; d >>= 1)
+        total = __fadd_rn(total, __shfl_down_sync(kFull, total, d, 8));
+    } else if (P.form == kWindows) {
+      total = 0.0f;
+      for (int w = 0; w < W; ++w) {
+        const int g = w < G ? w : W - 1 - w;
+        const float first = __shfl_sync(kFull, acc, c * G + g);
+        const float second = __shfl_sync(kFull, acc2, c * G + g);
+        total = __fadd_rn(total, w < G ? first : second);
+      }
+    }
+    if (mine && sub == 0) P.out[ci] = __fdiv_rn(total, (float)len);
+  }
+  __syncwarp();
+}
+
+// Copies bytes [begin, begin + n) of `src` to dst + (begin & 15) + ...:
+// cp.async for the 16-byte chunks inside the range, plain loads for its
+// ragged ends (dst 16-byte aligned, src's base too).
+__device__ __forceinline__ void stage_range(unsigned char* dst,
+                                            const unsigned char* src,
+                                            long long begin, long long n) {
+  const long long first = begin & ~15LL, end = begin + n;
+  for (long long a = first + 16LL * threadIdx.x; a < end;
+       a += 16LL * blockDim.x) {
+    unsigned char* d = dst + (a - first);
+    if (a >= begin && a + 16 <= end) {
+      const unsigned s = (unsigned)__cvta_generic_to_shared(d);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(src + a));
+    } else {
+      for (int m = 0; m < 16; ++m)
+        if (a + m >= begin && a + m < end) d[m] = src[a + m];
+    }
+  }
+}
+
+__host__ __device__ constexpr long long table_bytes(const Params& P) {
+  return ((P.max_radius + 1LL) * P.L * 8 + 15) / 16 * 16;
+}
+
+// Pixels from device memory. The block stages the perimeter table in shared
+// memory; warp w of block b takes the chunks of `chunk` circles b *
+// kDirectWarps + w, then every gridDim.x * kDirectWarps-th after it.
+__global__ void __launch_bounds__(kDirectWarps * 32)
+    perimeter_direct(Params P, int chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  WarpSmem& ws = reinterpret_cast<WarpSmem*>(smem)[warp];
+  unsigned char* tab = smem + kDirectWarps * sizeof(WarpSmem);
+  stage_range(tab, reinterpret_cast<const unsigned char*>(P.offsets), 0,
+              (P.max_radius + 1LL) * P.L * 8);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  const int2* offsets = reinterpret_cast<const int2*>(tab);
+  for (long long first = ((long long)blockIdx.x * kDirectWarps + warp) * chunk;
+       first < P.n; first += (long long)gridDim.x * kDirectWarps * chunk) {
+    const long long i = first + lane;
+    score_chunk<false>(P, lane < chunk && i < P.n ? (int)i : -1, ws, P.edges,
+                       P.angles, 0, offsets);
+  }
+}
+
+// Pixels staged: block b stages plane b / split of the batch (angles, then
+// edge bytes, each one contiguous range) and the perimeter table, and its
+// `split` blocks take the plane's circles' chunks of 32 in turn.
+__global__ void __launch_bounds__(kBatchWarps * 32)
+    perimeter_batch(Params P, int split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  WarpSmem& ws = reinterpret_cast<WarpSmem*>(smem)[warp];
+  const int plane = blockIdx.x / split, part = blockIdx.x - plane * split;
+  const long long el = (long long)plane * P.h * P.w, n = (long long)P.h * P.w;
+  unsigned char* tab = smem + batch_fixed_smem();
+  unsigned char* dst_a = tab + table_bytes(P);
+  unsigned char* dst_e = dst_a + (n * 4 + 31) / 16 * 16;
+  stage_range(tab, reinterpret_cast<const unsigned char*>(P.offsets), 0,
+              (P.max_radius + 1LL) * P.L * 8);
+  stage_range(dst_a, reinterpret_cast<const unsigned char*>(P.angles), el * 4,
+              n * 4);
+  stage_range(dst_e, P.edges, el, n);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  const int2* offsets = reinterpret_cast<const int2*>(tab);
+  const float* A = reinterpret_cast<const float*>(dst_a + ((el * 4) & 15));
+  const uint8_t* E = dst_e + (el & 15);
+  const int first = plane * P.per_plane;
+  for (int v0 = (part * kBatchWarps + warp) * 32; v0 < P.per_plane;
+       v0 += split * kBatchWarps * 32) {
+    const int v = v0 + lane;
+    score_chunk<true>(P, v < P.per_plane ? first + v : -1, ws, E, A, plane,
+                      offsets);
+  }
+}
+
+long long batch_smem(int h, int w, int max_radius, int L) {
+  // The table, the angles (+ up to 16 bytes of alignment) and the edges.
+  return batch_fixed_smem() + ((max_radius + 1LL) * L * 8 + 15) / 16 * 16 +
+         5LL * h * w + 64;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Scores of `n` circles (n, 3) int32 (row, col, radius), already shifted
-// into the padded planes. `angles` (n_planes, hp, wp) f32 and `edges`
-// (n_planes, hp, wp) uint8 0/1; `plane` (n,) int32 names each circle's
-// plane (null: plane 0); `valid` (n,) uint8 (null: all valid) gives -inf
-// where 0. Tables: `offsets` (max_radius + 1, L, 2) int32, `lengths`
-// (max_radius + 1,) int32, `expected` (max_radius + 1, L) f32. One launch on
-// `stream`, no synchronisation. Returns the launch's cudaGetLastError().
-int mg_perimeter_score(const void* angles, const void* edges, int hp, int wp,
-                       const void* circles, const void* plane,
-                       const void* valid, int n, const void* offsets,
-                       const void* lengths, const void* expected,
-                       int max_radius, int L, void* out, void* stream) {
+// Shared memory (bytes) a block of the batch plan needs for planes of
+// h x w (the plane's angles and edges, the warps' circle lists and the
+// perimeter table of max_radius, L positions).
+int mg_perimeter_smem(int h, int w, int max_radius, int L) {
+  const long long bytes = batch_smem(h, w, max_radius, L);
+  return bytes > (1 << 30) ? (1 << 30) : (int)bytes;
+}
+
+// Scores of `n` circles (row, col, radius) int32, in the coordinates of
+// the planes padded by `pad`, `per_plane` consecutive circles on each
+// plane (n for one plane). `angles` (n / per_plane, h, w) f32 and `edges`
+// uint8 0/1, both 16-byte aligned; `valid` n uint8 (null: all valid) gives
+// -inf where 0. Tables: `offsets` (max_radius + 1, L) int32 pairs
+// {dy << 16 | dx & 0xffff, expected's f32 bits}, `lengths` (max_radius +
+// 1,) int32. `mode` 0: direct, `chunk` circles per warp (at least one
+// pass's); 1: batch, `split` blocks per plane. One launch on `stream`, no
+// synchronisation. Returns cudaGetLastError().
+int mg_perimeter_score(const void* angles, const void* edges, int h, int w,
+                       int pad, const void* circles, const void* valid,
+                       int n, int per_plane, const void* offsets,
+                       const void* lengths, int max_radius, int L, int mode,
+                       int chunk, int split, void* out, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  perimeter_score_kernel<<<blocks, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(angles), static_cast<const uint8_t*>(edges),
-      hp, wp, static_cast<const int*>(circles),
-      static_cast<const int*>(plane), static_cast<const uint8_t*>(valid), n,
-      static_cast<const int2*>(offsets), static_cast<const int*>(lengths),
-      static_cast<const float*>(expected), max_radius, L,
-      static_cast<float*>(out));
+  const int form = L == 1 ? kOne : L < 16 ? kSeq : L <= 32 ? kLanes8
+                                                           : kWindows;
+  const int n_windows = form == kWindows ? (L + 31) / 32 : 1;
+  if (n_windows > 32 || per_plane <= 0 || chunk < 1 || chunk > 32 ||
+      split < 1)
+    return (int)cudaErrorInvalidValue;
+  Params P = {static_cast<const float*>(angles),
+              static_cast<const uint8_t*>(edges),
+              h, w, pad, h + 2 * pad, w + 2 * pad,
+              static_cast<const int*>(circles),
+              static_cast<const uint8_t*>(valid), n, per_plane,
+              static_cast<const int2*>(offsets),
+              static_cast<const int*>(lengths), max_radius, L, form,
+              n_windows, form == kWindows ? (n_windows * 32 - L) / 2 : 0,
+              static_cast<float*>(out)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == kDirect) {
+    // At least the circles one pass of a warp scores, so that no lane of a
+    // warp idles for want of circles.
+    chunk = max(chunk, 32 / lanes_per_circle(form, n_windows));
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    const long long chunks = ((long long)n + chunk - 1) / chunk;
+    const long long blocks = (chunks + kDirectWarps - 1) / kDirectWarps;
+    const int smem = (int)(kDirectWarps * sizeof(WarpSmem) + table_bytes(P));
+    const cudaError_t err = cudaFuncSetAttribute(
+        perimeter_direct, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    perimeter_direct<<<(unsigned)min(blocks, 16LL * sms), kDirectWarps * 32,
+                       smem, s>>>(P, chunk);
+    return (int)cudaGetLastError();
+  }
+  const int smem = mg_perimeter_smem(h, w, max_radius, L);
+  const cudaError_t err = cudaFuncSetAttribute(
+      perimeter_batch, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  perimeter_batch<<<(n / per_plane) * split, kBatchWarps * 32, smem, s>>>(
+      P, split);
   return (int)cudaGetLastError();
 }
 

@@ -241,9 +241,8 @@ def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
     pad = 2 * max_radius
     shift = torch.tensor([pad, pad, 0], dtype=torch.int32,
                          device=uniq.device)
-    scores = score_circles(F.pad(angles, (pad,) * 4),
-                           F.pad(edges, (pad,) * 4), uniq + shift,
-                           max_radius=max_radius)
+    scores = score_circles(angles, edges, uniq + shift,
+                           max_radius=max_radius, pad=pad)
     thresh = torch.tensor(np.float32(min_roundness), device=scores.device)
     lin = torch.nonzero(scores >= thresh).reshape(-1)  # unique-index order
     order = torch.sort(-scores[lin], stable=True).indices
@@ -282,19 +281,12 @@ def detect_rois_ransac(rois: torch.Tensor, low_q: float, high_q: float,
         cands, any_edges[:, None], height=l, width=l, min_radius=min_radius,
         max_radius=max_radius, cap=unique_cap)
     pad = 2 * max_radius
-    ga = F.pad(angles, (pad,) * 4)
-    eg = F.pad(edges, (pad,) * 4)
     shift = torch.tensor([pad, pad, 0], dtype=torch.int32, device=dev)
-    planes = torch.arange(n, dtype=torch.int32, device=dev)
 
     def scores_of(circles, valid):
         """Scores of (N, K, 3) circles, K per crop."""
-        k = circles.shape[1]
-        out = score_circles(ga, eg, (circles + shift).reshape(-1, 3),
-                            valid.reshape(-1),
-                            planes.repeat_interleave(k),
-                            max_radius=max_radius)
-        return out.reshape(n, k)
+        return score_circles(angles, edges, circles + shift, valid,
+                             max_radius=max_radius, pad=pad)
 
     thresh = torch.tensor(np.float32(min_roundness), device=dev)
     scores = scores_of(uniq, uvalid)

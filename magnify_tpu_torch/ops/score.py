@@ -18,10 +18,11 @@ for CPU tensors.
 The RANSAC detector (``magnify_tpu.ops.score.dedupe_circles`` and
 ``score_circles``) rounds its proposals to (row, col, radius) triples,
 keeps the unique ones in key order (:func:`dedupe_circles`) and scores each
-by walking its Bresenham perimeter (:func:`score_circles`): the CUDA kernel
-``csrc/perimeter_score.cu`` for CUDA tensors, :func:`score_circles_plain`
-for CPU tensors. Both sum in the order of the reference's compiled CPU
-program, so the scores are bit-equal to the JAX package's.
+by walking its Bresenham perimeter (:func:`score_circles`, on the unpadded
+planes): the CUDA kernel ``csrc/perimeter_score.cu`` for CUDA tensors,
+:func:`score_circles_plain` for CPU tensors. Both sum in the order of the
+reference's compiled CPU program (:func:`sum_form`), so the scores are
+bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ import torch.nn.functional as F
 from magnify_tpu_torch import _build, utils
 from magnify_tpu_torch.ops.edge import fma_f32
 
-__all__ = ["RingWeights", "dedupe_circles", "perimeter_score",
-           "raster_key_space", "ring_corr", "ring_corr_plain", "ring_weights",
-           "score_circles", "score_circles_plain", "score_maps"]
+__all__ = ["RingWeights", "dedupe_circles", "perimeter_plan",
+           "perimeter_score", "raster_key_space", "ring_corr",
+           "ring_corr_plain", "ring_weights", "score_circles",
+           "score_circles_plain", "score_maps", "sum_form"]
 
 _HARMONICS = (1, 3, 5, 7)
 _COEFFS = tuple(8.0 / (np.pi**2 * k**2) for k in _HARMONICS)
@@ -408,35 +410,96 @@ def _perimeter_tensors(max_radius: int, device: str):
             torch.as_tensor(expected, device=device))
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_table(max_radius: int, device: str):
+    """The kernel's perimeter table: (max_radius + 1, L, 2) int32 pairs
+    {dy << 16 | dx & 0xffff, the f32 bits of the expected angle}."""
+    from magnify_tpu_torch.ops.geom import perimeter_tables
+
+    offsets, _lengths, expected = perimeter_tables(max_radius)
+    dy, dx = (offsets[..., i].astype(np.int64) for i in (0, 1))
+    packed = ((dy << 16) | (dx & 0xFFFF)).astype(np.uint32).view(np.int32)
+    table = np.stack([packed, expected.view(np.int32)], axis=-1)
+    return torch.as_tensor(np.ascontiguousarray(table), device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _pixel_index(circles, offsets, r, p, hp, wp):
     rows = offsets[r, p, 0] + circles[:, 0]
     cols = offsets[r, p, 1] + circles[:, 1]
     return torch.clamp(rows.to(torch.int64) * wp + cols, 0, hp * wp - 1)
 
 
-def score_circles_plain(grad_angles, edges, circles, valid=None, plane=None,
-                        *, max_radius: int) -> torch.Tensor:
+def sum_form(n_pos: int) -> str:
+    """The reduction XLA's CPU backend compiles for a perimeter of
+    ``n_pos`` padded positions (read from the optimized LLVM IR of the
+    jitted ``score_circles``): "one" (1 position: the term itself, no +0
+    start, so -0.0 survives), "seq" (8 and 12: one sum in position order
+    from +0), "lanes8" (16-32: 8 vector lanes, lane j summing positions j,
+    j + 8, ... in order, then halved 8 -> 4 -> 2 -> 1) or "windows" (above
+    32: windows of 32, each summed in order from +0, then the window sums
+    in order)."""
+    if n_pos == 1:
+        return "one"
+    if n_pos < 16:
+        return "seq"
+    return "lanes8" if n_pos <= 32 else "windows"
+
+
+def _check_scorer_shapes(grad_angles, edges, circles, valid, name):
+    if grad_angles.shape != edges.shape or grad_angles.ndim not in (2, 3):
+        raise ValueError(f"{name}: angles and edges of one (H, W) or "
+                         "(P, H, W) shape required")
+    if grad_angles.ndim == 2:
+        fits = circles.ndim == 2
+    else:
+        fits = circles.ndim == 3 and circles.shape[0] == grad_angles.shape[0]
+    if not fits or circles.shape[-1] != 3:
+        raise ValueError(f"{name}: circles {tuple(circles.shape)} do not fit "
+                         f"planes {tuple(grad_angles.shape)}: (N, 3) for one "
+                         "plane, (P, K, 3) for P planes")
+    if valid is not None and valid.shape != circles.shape[:-1]:
+        raise ValueError(f"{name}: valid {tuple(valid.shape)} does not fit "
+                         f"circles {tuple(circles.shape)}")
+
+
+def score_circles_plain(grad_angles, edges, circles, valid=None, *,
+                        max_radius: int, pad: int | None = None
+                        ) -> torch.Tensor:
     """Roundness score per circle in plain torch: the twin of
     :func:`perimeter_score`, bit-identical to it and to the JAX package's
     jitted ``score_circles`` on the CPU.
 
-    Per perimeter position (a Python loop over the L positions on (N,)
-    vectors): align = fma(|wrap(|a - e|) - pi/2|, f32(4/pi), -1) at edge
-    pixels, summed in XLA's CPU order (see ``csrc/perimeter_score.cu``:
-    windows of 32 positions for L > 32, 8 lanes otherwise), then divided by
+    Pads the planes by ``pad`` and runs the reference's program on them:
+    per perimeter position (a Python loop over the L positions on (N,)
+    vectors), align = fma(|wrap(|a - e|) - pi/2|, f32(4/pi), -1) at edge
+    pixels, summed in XLA's CPU order (:func:`sum_form`), then divided by
     the perimeter length. Arguments as :func:`score_circles`.
     """
-    angles_flat = grad_angles.reshape(-1)
-    edges_flat = edges.reshape(-1)
-    hp, wp = grad_angles.shape[-2:]
+    _check_scorer_shapes(grad_angles, edges, circles, valid,
+                         "score_circles_plain")
+    pad = 2 * int(max_radius) if pad is None else int(pad)
+    ga = F.pad(grad_angles, (pad,) * 4)
+    eg = F.pad(edges, (pad,) * 4)
+    angles_flat = ga.reshape(-1)
+    edges_flat = eg.reshape(-1)
+    hp, wp = ga.shape[-2:]
     dev = circles.device
     offsets, lengths, expected = _perimeter_tensors(int(max_radius),
                                                     str(dev))
     n_pos = offsets.shape[1]
-    c = circles.to(torch.int64)
+    c = circles.reshape(-1, 3).to(torch.int64)
     r = torch.clamp(c[:, 2], 0, int(max_radius))
     n_r = lengths[r]
-    base = 0 if plane is None else plane.to(torch.int64) * (hp * wp)
+    base = 0
+    if circles.ndim == 3:
+        k = circles.shape[1]
+        base = torch.arange(circles.shape[0], device=dev).repeat_interleave(
+            k) * (hp * wp)
 
     def f32(v):
         return torch.tensor(np.float32(v), device=dev)
@@ -444,17 +507,35 @@ def score_circles_plain(grad_angles, edges, circles, valid=None, plane=None,
     pi, half_pi, four_over_pi = f32(np.pi), f32(np.pi / 2), f32(4 / np.pi)
     minus_one = f32(-1.0).expand(c.shape[0])
 
-    def add_term(acc, p):
+    def align_hit(p):
         idx = base + _pixel_index(c, offsets, r, p, hp, wp)
         d = torch.abs(angles_flat[idx] - expected[r, p])
         d = torch.where(d > pi, d + (-pi), d)
         align = fma_f32(torch.abs(d + (-half_pi)),
                         four_over_pi.expand_as(d), minus_one)
-        hit = edges_flat[idx].to(torch.bool) & (p < n_r)
+        return align, edges_flat[idx].to(torch.bool) & (p < n_r)
+
+    def add_term(acc, p):
+        align, hit = align_hit(p)
         return torch.where(hit, acc + align, acc)
 
     zeros = torch.zeros(c.shape[0], dtype=torch.float32, device=dev)
-    if n_pos > 32:
+    form = sum_form(n_pos)
+    if form == "one":
+        align, hit = align_hit(0)
+        total = align * hit.to(torch.float32)
+    elif form == "seq":
+        total = zeros
+        for p in range(n_pos):
+            total = add_term(total, p)
+    elif form == "lanes8":
+        lanes = [zeros] * 8
+        for p in range(n_pos):
+            lanes[p % 8] = add_term(lanes[p % 8], p)
+        lanes = [lanes[k] + lanes[k + 4] for k in range(4)]
+        lanes = [lanes[k] + lanes[k + 2] for k in range(2)]
+        total = lanes[0] + lanes[1]
+    else:
         n_windows = -(-n_pos // 32)
         lead = (n_windows * 32 - n_pos) // 2
         total = zeros
@@ -464,84 +545,137 @@ def score_circles_plain(grad_angles, edges, circles, valid=None, plane=None,
                            min(w * 32 - lead + 32, n_pos)):
                 acc = add_term(acc, p)
             total = total + acc
-    else:
-        lanes = [zeros] * 8
-        for p in range(n_pos):
-            lanes[p % 8] = add_term(lanes[p % 8], p)
-        lanes = [lanes[k] + lanes[k + 4] for k in range(4)]
-        lanes = [lanes[k] + lanes[k + 2] for k in range(2)]
-        total = lanes[0] + lanes[1]
-    scores = total / n_r.to(torch.float32)
+    scores = (total / n_r.to(torch.float32)).reshape(circles.shape[:-1])
     if valid is not None:
         scores = torch.where(valid, scores, -torch.inf)
     return scores
 
 
-def perimeter_score(grad_angles, edges, circles, valid=None, plane=None, *,
-                    max_radius: int) -> torch.Tensor:
+# Launch plans of the kernel (``csrc/perimeter_score.cu``'s ``Mode``).
+_DIRECT, _BATCH = 0, 1
+#: A batch of planes is staged in shared memory when its circles read at
+#: least this many perimeter positions per pixel of a plane.
+TILED_READS_PER_PIXEL = 8
+#: Warps a direct launch should give each SM before a warp takes more
+#: than one circle.
+_DIRECT_WARPS_PER_SM = 32
+#: Blocks that share one plane of a batch: at least 4 (a crop's valid rows
+#: are few thousand at most; more blocks in flight hide the latency), more
+#: where a small batch would leave SMs idle.
+_MIN_SPLIT, _MAX_SPLIT = 4, 8
+
+
+def perimeter_plan(grad_angles, circles, *, max_radius: int) -> tuple:
+    """How :func:`perimeter_score` launches for these shapes: (plan, circles
+    per warp chunk, blocks per plane).
+
+    "batch": a (P, H, W) batch whose circles read at least
+    :data:`TILED_READS_PER_PIXEL` perimeter positions per pixel (the chip
+    path's chamber crops): blocks stage one plane each in shared memory;
+    "direct": every pixel read from device memory (one plane, or a batch
+    with few circles per plane, as the hill-climb's 27), one warp per chunk
+    of circles. One launch either way.
+    """
+    h, w = grad_angles.shape[-2:]
+    n_pos = _perimeter_tensors(int(max_radius), "cpu")[0].shape[1]
+    n = int(np.prod(circles.shape[:-1]))
+    sms = _sm_count(circles.device)
+    if circles.ndim == 3 and (
+            circles.shape[1] * n_pos >= TILED_READS_PER_PIXEL * h * w) and (
+            0 < _build.load().mg_perimeter_smem(
+                h, w, int(max_radius), n_pos) <= _MAX_SMEM):
+        planes = circles.shape[0]
+        return "batch", 32, min(_MAX_SPLIT, max(_MIN_SPLIT,
+                                                -(-2 * sms // planes)))
+    chunk = 32
+    while chunk > 1 and n < chunk * sms * _DIRECT_WARPS_PER_SM:
+        chunk //= 2
+    return "direct", chunk, 1
+
+
+def perimeter_score(grad_angles, edges, circles, valid=None, *,
+                    max_radius: int, pad: int | None = None) -> torch.Tensor:
     """The CUDA kernel ``csrc/perimeter_score.cu``: one launch on the
-    current stream, no host sync. Arguments as :func:`score_circles`; every
-    tensor on one CUDA device."""
+    current stream (its plan: :func:`perimeter_plan`), no host sync.
+    Arguments as :func:`score_circles`; every tensor on one CUDA device."""
     global perimeter_launches, perimeter_batched_launches
     dev = circles.device
     if dev.type != "cuda":
         raise ValueError(f"perimeter_score: unsupported device {dev}")
     for name, t in (("grad_angles", grad_angles), ("edges", edges)) + (
-            (("valid", valid),) if valid is not None else ()) + (
-            (("plane", plane),) if plane is not None else ()):
+            (("valid", valid),) if valid is not None else ()):
         if t.device != dev:
             raise ValueError(f"perimeter_score: {name} on {t.device}, "
                              f"circles on {dev}")
     if grad_angles.dtype != torch.float32 or edges.dtype != torch.bool:
         raise TypeError("perimeter_score: f32 angles and bool edges "
                         f"required, got {grad_angles.dtype}, {edges.dtype}")
-    if grad_angles.shape != edges.shape or grad_angles.ndim not in (2, 3):
-        raise ValueError("perimeter_score: angles and edges of one (Hp, Wp) "
-                         "or (P, Hp, Wp) shape required")
-    hp, wp = grad_angles.shape[-2:]
-    n = circles.shape[0]
-    if hp * wp >= 2**31 or n >= 2**31:
-        raise ValueError(f"perimeter_score: {n} circles on {hp}x{wp} "
-                         "planes exceed the kernel's int32 indices")
-    offsets, lengths, expected = _perimeter_tensors(int(max_radius),
-                                                    str(dev))
-    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _check_scorer_shapes(grad_angles, edges, circles, valid,
+                         "perimeter_score")
+    pad = 2 * int(max_radius) if pad is None else int(pad)
+    h, w = grad_angles.shape[-2:]
+    hp, wp = h + 2 * pad, w + 2 * pad
+    n = int(np.prod(circles.shape[:-1]))
+    if pad < 0 or hp * wp >= 2**31 or n >= 2**31 or (
+            grad_angles.numel() >= 2**31):
+        raise ValueError(f"perimeter_score: {n} circles on {h}x{w} planes "
+                         f"padded by {pad} exceed the kernel's indices")
+    offsets, lengths, _expected = _perimeter_tensors(int(max_radius),
+                                                     str(dev))
+    if offsets.shape[1] > 32 * 32:
+        raise ValueError(f"perimeter_score: max_radius {max_radius} gives "
+                         f"{offsets.shape[1]} perimeter positions, over the "
+                         "kernel's 1,024")
+    out = torch.empty(circles.shape[:-1], dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    plan, chunk, split = perimeter_plan(grad_angles, circles,
+                                        max_radius=max_radius)
+    # Batch planes are staged in 16-byte copies from the planes' base
+    # addresses, which must be 16-byte aligned (a fresh allocation is).
     angles = grad_angles.contiguous()
     edges_u8 = edges.contiguous().view(torch.uint8)
+    if angles.data_ptr() % 16:
+        angles = angles.clone()
+    if edges_u8.data_ptr() % 16:
+        edges_u8 = edges_u8.clone()
     circ = circles.to(torch.int32).contiguous()
-    plane_i = None if plane is None else plane.to(torch.int32).contiguous()
     valid_u8 = None if valid is None else \
         valid.to(torch.bool).contiguous().view(torch.uint8)
+    per_plane = circles.shape[1] if circles.ndim == 3 else n
     err = _build.load().mg_perimeter_score(
-        angles.data_ptr(), edges_u8.data_ptr(), hp, wp, circ.data_ptr(),
-        None if plane_i is None else plane_i.data_ptr(),
-        None if valid_u8 is None else valid_u8.data_ptr(), n,
-        offsets.data_ptr(), lengths.data_ptr(), expected.data_ptr(),
-        int(max_radius), offsets.shape[1], out.data_ptr(),
+        angles.data_ptr(), edges_u8.data_ptr(), h, w, pad, circ.data_ptr(),
+        None if valid_u8 is None else valid_u8.data_ptr(), n, per_plane,
+        _kernel_table(int(max_radius), str(dev)).data_ptr(),
+        lengths.data_ptr(), int(max_radius), offsets.shape[1],
+        _BATCH if plan == "batch" else _DIRECT, chunk, split, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     perimeter_launches += 1
-    perimeter_batched_launches += int(plane is not None)
+    perimeter_batched_launches += int(circles.ndim == 3)
     _build.check(err, "mg_perimeter_score")
     return out
 
 
-def score_circles(grad_angles, edges, circles, valid=None, plane=None, *,
-                  max_radius: int) -> torch.Tensor:
+def score_circles(grad_angles, edges, circles, valid=None, *,
+                  max_radius: int, pad: int | None = None) -> torch.Tensor:
     """Roundness score per circle (the reference's ``mean_grad``): the mean
     perimeter alignment of the gradient angles at edge pixels.
 
-    ``grad_angles`` f32 and ``edges`` bool are padded by ``2 * max_radius``
-    on every side, one plane (Hp, Wp) or a batch (P, Hp, Wp); ``circles``
-    (N, 3) int32 (row, col, radius) are shifted by that pad; ``plane`` (N,)
-    names each circle's plane in a batch. Rows where ``valid`` is False
-    score ``-inf``. CUDA tensors launch :func:`perimeter_score`, CPU
-    tensors run :func:`score_circles_plain`; both give the JAX package's
-    scores bit for bit.
+    ``grad_angles`` f32 and ``edges`` bool are the unpadded planes, one
+    (H, W) or a batch (P, H, W). ``circles`` (row, col, radius) int32 are
+    in the coordinates of those planes padded by ``pad`` (default ``2 *
+    max_radius``, the reference's padding): (N, 3) for one plane, (P, K,
+    3) for K circles on each plane of a batch. A perimeter pixel is read where the
+    reference reads it: at its flat index into the padded plane, clamped
+    into that plane (a column past the edge wraps into the next row); pad
+    pixels are not edges. Rows where ``valid`` (of the circles' leading
+    shape) is False score ``-inf``. Returns scores of the circles' leading
+    shape. CUDA tensors launch :func:`perimeter_score`, CPU tensors run
+    :func:`score_circles_plain`; both give the JAX package's scores bit for
+    bit.
     """
     if circles.device.type == "cpu":
-        return score_circles_plain(grad_angles, edges, circles, valid, plane,
-                                   max_radius=max_radius)
-    return perimeter_score(grad_angles, edges, circles, valid, plane,
-                           max_radius=max_radius)
+        return score_circles_plain(grad_angles, edges, circles, valid,
+                                   max_radius=max_radius, pad=pad)
+    return perimeter_score(grad_angles, edges, circles, valid,
+                           max_radius=max_radius, pad=pad)

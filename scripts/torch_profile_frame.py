@@ -141,7 +141,8 @@ def ransac_stages(label, run, reps=3) -> None:
                 out = real(*args, **kw)
                 end.record()
                 if name == "score_circles":
-                    what = f"{args[2].shape[0]} circles"
+                    what = "x".join(map(str, args[2].shape[:-1]))
+                    what += " circles"
                 elif name == "dedupe_circles":
                     what = str(tuple(args[0][0].shape))
                 else:

@@ -171,46 +171,86 @@ def test_ring_corr_kernel_batch_matches_plain(cuda, radii, shape):
     assert torch.equal(got[-1], tscore.ring_corr(feats[-1], weights))
 
 
-def _score_inputs(seed, planes, hp, wp, n, max_radius):
+def _score_inputs(seed, planes, h, w, n, max_radius, pad, ordered=False,
+                  prefix=False):
+    """Random angles and edges, ``n`` circles per plane reaching 3 pixels
+    past the padded plane with radii -1 .. max_radius + 1 (``ordered``:
+    sorted by (row, col, radius) as the dedupe emits them), and valid flags:
+    10% invalid at random, or (``prefix``) a valid prefix of random length
+    per plane, the first plane's empty."""
     rng = np.random.default_rng(seed)
-    angles = rng.uniform(-np.pi, np.pi, (planes, hp, wp)).astype(np.float32)
-    edges = rng.random((planes, hp, wp)) < 0.3
-    circles = np.stack([rng.integers(-3, hp + 3, n),
-                        rng.integers(-3, wp + 3, n),
-                        rng.integers(-1, max_radius + 2, n)],
-                       axis=1).astype(np.int32)
-    plane = rng.integers(0, planes, n).astype(np.int32)
-    valid = rng.random(n) < 0.9
-    return angles, edges, circles, plane, valid
+    angles = rng.uniform(-np.pi, np.pi, (planes, h, w)).astype(np.float32)
+    edges = rng.random((planes, h, w)) < 0.3
+    circles = np.stack([rng.integers(-3, h + 2 * pad + 3, (planes, n)),
+                        rng.integers(-3, w + 2 * pad + 3, (planes, n)),
+                        rng.integers(-1, max_radius + 2, (planes, n))],
+                       axis=-1).astype(np.int32)
+    if ordered:
+        for b in range(planes):
+            order = np.lexsort(circles[b].T[::-1])
+            circles[b] = circles[b][order]
+    if prefix:
+        n_valid = rng.integers(0, n + 1, planes)
+        n_valid[0] = 0
+        valid = np.arange(n)[None, :] < n_valid[:, None]
+    else:
+        valid = rng.random((planes, n)) < 0.9
+    return angles, edges, circles, valid
 
 
-@pytest.mark.parametrize("max_radius,planes", [(4, 1), (12, 1), (15, 1),
-                                               (15, 7), (16, 64)])
-def test_perimeter_score_kernel_matches_plain(cuda, max_radius, planes):
-    """Bit for bit: perimeters of 24 (8 lanes), 68, 88 and 92 positions
-    (windows of 32), circles that reach past the plane (clamped), radii
-    outside the table (clipped), invalid rows, a batch of planes."""
-    angles, edges, circles, plane, valid = _score_inputs(
-        max_radius, planes, 60, 70, 5000, max_radius)
-    args = [torch.as_tensor(a) for a in (angles, edges, circles)]
-    extra = [torch.as_tensor(valid),
-             torch.as_tensor(plane) if planes > 1 else None]
+@pytest.mark.parametrize(
+    "max_radius,planes,h,w,n,ordered,prefix,plan", [
+        # Every sum form (L = 1, 8, 12, 24, 68, 88, 92), pixels read
+        # straight from device memory, one circle per warp and (a sparse
+        # 2000 x 2100 plane) 32.
+        (0, 1, 120, 150, 2000, False, False, "direct"),
+        (1, 1, 120, 150, 2000, False, False, "direct"),
+        (2, 1, 120, 150, 2000, False, False, "direct"),
+        (4, 1, 120, 150, 2000, False, False, "direct"),
+        (12, 1, 120, 150, 2000, False, False, "direct"),
+        (15, 1, 120, 150, 2000, False, False, "direct"),
+        (16, 1, 120, 150, 2000, False, False, "direct"),
+        (15, 1, 2000, 2100, 200000, True, False, "direct"),
+        # Dense planes of odd widths, the circles sorted (as the dedupe
+        # emits them) or not.
+        (12, 1, 150, 171, 30000, True, False, "direct"),
+        (12, 1, 150, 171, 30000, False, False, "direct"),
+        (0, 1, 40, 45, 20000, True, False, "direct"),
+        (2, 1, 57, 131, 20000, True, False, "direct"),
+        (16, 1, 90, 201, 40000, True, False, "direct"),
+        # Batches of planes staged one per block, with valid prefixes and an
+        # all-invalid plane; and the hill-climb's few circles per plane.
+        (15, 7, 72, 72, 4096, True, True, "batch"),
+        (16, 5, 72, 72, 4096, False, False, "batch"),
+        (4, 3, 33, 47, 3000, False, True, "batch"),
+        (1, 5, 20, 21, 1000, False, True, "batch"),
+        (16, 64, 72, 72, 27, False, False, "direct"),
+        (2, 9, 35, 37, 60, False, True, "direct"),
+    ])
+def test_perimeter_score_kernel_matches_plain(cuda, max_radius, planes, h, w,
+                                              n, ordered, prefix, plan):
+    """Bit for bit against the twin (on the CPU and on the card), in the
+    plan expected for the shapes, one launch per call."""
+    pad = 2 * max_radius
+    angles, edges, circles, valid = _score_inputs(
+        max_radius * 100 + planes, planes, h, w, n, max_radius, pad,
+        ordered, prefix)
+    args = [torch.as_tensor(a) for a in (angles, edges, circles, valid)]
     if planes == 1:
-        args[0], args[1] = args[0][0], args[1][0]
-    want = tscore.score_circles_plain(*args, *extra, max_radius=max_radius)
+        args = [a[0] for a in args]
+    kw = dict(max_radius=max_radius, pad=pad)
+    want = tscore.score_circles_plain(*args, **kw)
+    on_card = [a.to(cuda) for a in args]
+    assert tscore.perimeter_plan(on_card[0], on_card[2],
+                                 max_radius=max_radius)[0] == plan
     before = tscore.perimeter_launches
-    got = tscore.score_circles(*(a.to(cuda) for a in args),
-                               *(e.to(cuda) if e is not None else None
-                                 for e in extra), max_radius=max_radius)
+    got = tscore.score_circles(*on_card, **kw)
     assert tscore.perimeter_launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
                                   want.numpy().view(np.int32))
     # The twin is the same on the card.
-    twin = tscore.score_circles_plain(*(a.to(cuda) for a in args),
-                                      *(e.to(cuda) if e is not None else None
-                                        for e in extra),
-                                      max_radius=max_radius)
-    assert torch.equal(twin.cpu(), want)
+    assert torch.equal(tscore.score_circles_plain(*on_card, **kw).cpu(),
+                       want)
 
 
 def test_ransac_stages_on_the_card_equal_the_cpu(cuda):

@@ -11,9 +11,12 @@ jitted functions on the CPU.
 * ``ops/score.dedupe_circles``: the uniques and their count exactly equal,
   with NaN, +-inf and +-1e20 coordinates and radii among the proposals,
   for one plane and for a capped batch;
-* ``ops/score.score_circles``: bit-equal, fed the JAX package's own padded
-  angles and edges, at perimeters of 24 (the 8-lane sum), 68 and 88
-  positions (the 32-wide windowed sum);
+* ``ops/score.score_circles``: bit-equal, the port fed the unpadded angles
+  and edges and the JAX package their padded copies, on the frame's
+  proposals at perimeters of 24 (the 8-lane sum), 68 and 88 positions (the
+  32-wide windowed sum), and on random planes at every sum form (1, 8, 12,
+  16, 24, 32 and 68 positions), with circles past the padded plane and
+  batches of planes;
 * ``ops/detect.detect_ransac`` and ``detect_best_in_rois(detector=
   "ransac")``: circles and scores bit-equal to ``find_circles``/
   ``detect_best_in_rois`` with the gather scorer.
@@ -219,8 +222,9 @@ def test_dedupe_batch_keeps_the_first_cap_uniques():
 
 @pytest.mark.parametrize("radii", ((3, 4), (8, 12), (10, 15)))
 def test_score_circles_match(jax_edges, radii):
-    """Scores of every unique proposal of the frame (and of invalid rows),
-    on the JAX package's padded angles and edges: bit-equal."""
+    """Scores of every unique proposal of the frame (and of invalid rows):
+    the port scores the unpadded angles and edges, the JAX package their
+    padded copies; bit-equal."""
     from magnify_tpu.ops.ransac import candidate_circles
     from magnify_tpu.ops.score import dedupe_circles, score_circles
 
@@ -239,11 +243,58 @@ def test_score_circles_match(jax_edges, radii):
     shifted = uniq.at[:, :2].add(pad)
     want = score_circles(ga, eg, shifted, uvalid, max_radius=max_r)
     got = tscore.score_circles(
-        torch.from_numpy(np.array(ga)), torch.from_numpy(np.array(eg)),
+        torch.from_numpy(np.array(angles)), torch.from_numpy(np.array(edges)),
         torch.from_numpy(np.array(shifted)),
-        torch.from_numpy(np.array(uvalid)), max_radius=max_r)
+        torch.from_numpy(np.array(uvalid)), max_radius=max_r, pad=pad)
     np.testing.assert_array_equal(_bits(got), _bits(want))
     assert np.isfinite(np.asarray(want)).sum() > 300
+
+
+def _random_scorer_inputs(seed, planes, h, w, n, max_radius, pad):
+    """Random angles and edges, and circles whose perimeters reach up to 3
+    pixels past the padded plane on every side, with radii from -1 to
+    ``max_radius + 1`` (outside the table: clipped) and 10% invalid."""
+    rng = np.random.default_rng(seed)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    angles = rng.uniform(-np.pi, np.pi, (planes, h, w)).astype(np.float32)
+    edges = rng.random((planes, h, w)) < 0.5
+    circles = np.stack([rng.integers(-3, hp + 3, (planes, n)),
+                        rng.integers(-3, wp + 3, (planes, n)),
+                        rng.integers(-1, max_radius + 2, (planes, n))],
+                       axis=-1).astype(np.int32)
+    valid = rng.random((planes, n)) < 0.9
+    return angles, edges, circles, valid
+
+
+@pytest.mark.parametrize("max_radius,pad,planes", [
+    (0, 0, 1), (1, 2, 1), (2, 4, 1), (3, 6, 1), (4, 8, 1), (5, 10, 1),
+    (4, 1, 1), (2, 4, 3), (12, 24, 2)])
+def test_score_circles_unpadded_planes_match(max_radius, pad, planes):
+    """Perimeters of 1, 8, 12, 16, 24, 32 and 68 positions (every sum form
+    of XLA's CPU program, -0.0 included at 1), circles past the padded
+    plane (the flat index clamped, a column past the edge wrapping into the
+    next row: into image pixels where the pad is 1), radii outside the
+    table, and batches: the port on unpadded planes and ``pad``, the JAX
+    package on their ``jnp.pad`` copies, plane by plane; bit-equal."""
+    from magnify_tpu.ops.score import score_circles
+
+    h, w = 34, 29
+    angles, edges, circles, valid = _random_scorer_inputs(
+        max_radius, planes, h, w, 1500, max_radius, pad)
+    want = np.stack([np.asarray(score_circles(
+        jnp.pad(jnp.asarray(angles[b]), pad),
+        jnp.pad(jnp.asarray(edges[b]), pad), jnp.asarray(circles[b]),
+        jnp.asarray(valid[b]), max_radius=max_radius))
+        for b in range(planes)])
+    args = [torch.from_numpy(a) for a in (angles, edges, circles, valid)]
+    if planes == 1:
+        args = [a[0] for a in args]
+        want = want[0]
+    got = tscore.score_circles(*args, max_radius=max_radius, pad=pad)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    if max_radius == 0:
+        assert (_bits(want) == np.int32(-2**31)).sum() > 100
 
 
 @pytest.mark.parametrize("normalized", (True, False))
