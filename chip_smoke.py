@@ -23,8 +23,8 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    at radii 4-15, at most 3,188) and its 27-neighbour hill-climb; and on
    random 1024^2 planes at ``max_radius`` 0, 1 and 2 (L = 1, 8, 12: sum
    forms of their own, -0.0 scores at L = 1), each scorer call one launch
-   in the plan ``ops.score.perimeter_plan`` gives, timed with CUDA events
-   and, the kernel alone, with ``torch.profiler``.
+   with the lanes a circle ``ops.score.perimeter_plan`` gives, timed with
+   CUDA events and, the kernel alone, with ``torch.profiler``.
    Batched: hysteresis on the Canny masks of the chamber crops of frame C8
    (64 x 72^2) and frame C (1,568 x 72^2), on random (N, H, W) masks with
    W in {17, 72, 130} and on a batch whose planes would join if the kernel
@@ -84,9 +84,11 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    A's shapes and the same keys with ``_frame_b`` at frame B's,
    ``bound_by``, ``max_abs_err``; the batched entries have the same keys
    with ``_rois_c8`` and ``_rois_c``; perimeter_score's record has them for
-   each of its inputs above (``profiler_ms`` beside ``ms``, the plan of
-   each, ``redesigned``), and its batched entry has frame C's chamber
-   batch under the plain keys) and, last, one JSON line
+   each of its inputs above (``profiler_ms`` beside ``ms``; ``bound_share``
+   over ``profiler_ms`` and ``bound_share_events`` over ``ms``; the lanes a
+   circle of each under ``plan``; ``redesigned``), and its batched entry
+   has frame C's chamber batch under the plain keys) and, last, one JSON
+   line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits nonzero and prints no result.
@@ -893,8 +895,7 @@ def _perimeter_record(dev) -> dict:
         circles, max_r, pad = args["circles"], args["max_radius"], args["pad"]
         n = int(np.prod(circles.shape[:-1]))
         n_pos = score._perimeter_tensors(max_r, str(dev))[0].shape[1]
-        plan, chunk, split = score.perimeter_plan(
-            args["grad_angles"], circles, max_radius=max_r)
+        lanes = score.perimeter_plan(circles, max_radius=max_r)
         before = score.perimeter_launches
         got = score.score_circles(**args)
         if score.perimeter_launches != before + 1:
@@ -923,25 +924,30 @@ def _perimeter_record(dev) -> dict:
         bound_ms, bound_by = _bound(n_bytes, 6 * hits + n_valid,
                                     F32_OPS_PER_S)
         key = tag or "_frame_a"
-        rec["plan"][key] = plan
+        rec["plan"][key] = lanes
+        # The share of the bound over the kernel's device time (profiler);
+        # over the CUDA-event time (which holds the wrapper's host work
+        # between back-to-back calls) as well.
         rec.update({f"ms{tag}": k_ms, f"profiler_ms{tag}": prof_ms,
                     f"plain_ms{tag}": p_ms, f"bound_ms{tag}": bound_ms,
                     "bound_by": bound_by,
-                    f"bound_share{tag}": bound_ms / k_ms,
+                    f"bound_share{tag}": (bound_ms / prof_ms
+                                          if prof_ms else None),
+                    f"bound_share_events{tag}": bound_ms / k_ms,
                     f"n_circles{tag}": n, f"L{tag}": n_pos})
         n_planes = angles.shape[0] if angles.ndim == 3 else 1
         _say(f"perimeter_score == plain on {name}: N = {n} circles "
              f"({n_valid} valid) on {n_planes} plane(s) of "
              f"{tuple(angles.shape[-2:])} (pad {pad} not stored), L = "
              f"{n_pos} positions, {hits} edge hits, {touched} perimeter "
-             f"pixels ({touched_edges} edges); plan {plan} ({chunk} circles "
-             f"per warp chunk, {split} block(s) per plane); kernel "
-             f"{k_ms:.4f} ms (CUDA events), {prof_ms} ms on the device "
-             f"(profiler, the kernel alone, mean of the {prof_launches} "
-             "launches it recorded of 20), "
-             f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-             f"share {bound_ms / k_ms:.4f}; no single PyTorch call "
-             "computes it")
+             f"pixels ({touched_edges} edges); {lanes} lane(s) a circle; "
+             f"kernel {k_ms:.4f} ms (CUDA "
+             f"events), {prof_ms} ms on the device (profiler, the kernel "
+             f"alone, mean of the {prof_launches} launches it recorded of "
+             f"20), plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
+             f"({bound_by}), share {rec[f'bound_share{tag}']} of the "
+             f"device time ({bound_ms / k_ms:.4f} of the event time); no "
+             "single PyTorch call computes it")
         del got, want
     rec["max_abs_err"] = err
     return rec

@@ -41,8 +41,7 @@ _SIGNATURES = {
     "mg_ring_corr": ([_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P], _I),
     "mg_ring_corr_smem": ([_I, _I], _I),
     "mg_perimeter_score": ([_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I,
-                            _I, _I, _I, _I, _P, _P], _I),
-    "mg_perimeter_smem": ([_I, _I, _I, _I], _I),
+                            _I, _I, _P, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -50,43 +50,46 @@
 // What bounds it: bytes. Per call it must read each valid circle, the edge
 // flag of each distinct perimeter pixel and the angle of each distinct edge
 // pixel among them, and write one score per circle (chip_smoke.py::
-// _perimeter_work); its float work is 6 operations per edge hit.
+// _perimeter_work); its float work is 6 operations per edge hit. It runs
+// far from that bound: each position is a gather of a table entry, an edge
+// byte and (at an edge) an angle, a lane's positions at scattered pixels,
+// so the time is the caches' transactions and their latency.
 //
-// What held the first design back (one thread per circle, walking its L
-// positions in order): each position was an edge load, a branch on it, then
-// an angle load, so every call cost about L x two dependent memory
-// latencies (40-60 us however few circles), and the caller built
-// zero-padded copies of both planes around every call.
-//
-// This design:
-//   * lanes over positions, along the reduction's own partial sums: the
-//     positions of a circle are spread over G lanes, each lane folding its
-//     share in order, loads of 4 positions in flight before any is used,
-//     and the shares are combined in XLA's order by shuffles. For L > 32,
-//     G = ceil(W / 2): lane g folds window g and window W - 1 - g (the
-//     lanes' shares then come out about even) and the circle's first lane
-//     adds the W window sums in order; for L = 16-32, G = 8, lane j folds
-//     positions j, j + 8, ... and the 8 lane sums are halved by shuffles;
-//     for L <= 12, one lane (one sum in order; the single term). A warp
-//     takes 32 rows, keeps the valid circles, and scores 32 / G at a time;
-//   * shared-memory tiles where circles are dense: a batch of planes whose
-//     circles read at least 8 perimeter positions per pixel (the chip
-//     path's chamber crops, 72^2, ~3,000-4,000 rows each) takes 4-8 blocks
-//     a plane, each staging the plane (angles and edge bytes) and the
-//     perimeter table by cp.async (16-byte copies of each contiguous range,
-//     its ragged ends by plain loads); every circle of the plane then reads
-//     shared memory;
-//   * direct reads elsewhere (one plane; the hill-climb's 27 circles a
-//     plane): every pixel from device memory, the table in shared memory,
-//     warps taking as few circles each as fill the card;
-//   * pixels without the pad: a circle whose perimeter lies inside the
-//     unpadded plane reads centre pixel + dy * w + dx; one inside the padded
-//     plane checks each pixel against the unpadded one (outside: a pad
-//     pixel); any other (only a hill-climb neighbour can be) finds each
-//     pixel as the reference does, clamped flat index and all;
-//   * no padded copies: the planes are read as they are.
-// One launch per call; the wrapper (ops/score.py::perimeter_plan) picks the
-// plan from the shapes.
+// What held the first design (one thread per circle walking its positions
+// in order, one load chain at a time) back, and what this one does:
+//   * lanes over positions where a call has few circles (the hill-climbs,
+//     C8's plane): it took ~L dependent load chains per call however few
+//     circles, so here the lanes that hold the reduction's partial sums
+//     share a circle and are combined by shuffles in XLA's order (for
+//     L > 32, ceil(W / 2) lanes, lane g folding window g and window
+//     W - 1 - g so that the lanes' shares come out about even; for
+//     L = 16-32, 8 lanes, lane j folding positions j, j + 8, ... then
+//     halved); one lane a circle where a call has circles to fill the card;
+//   * loads in flight: a lane loads kUnroll positions at once (their table
+//     entries, then their edge bytes, then the angles of the edges among
+//     them) before it adds any in order;
+//   * the table position-major, (L, max_radius + 1) entries {dy << 16 | dx &
+//     0xffff, expected's f32 bits}: the lanes of a warp walk their
+//     circles' positions in step, so the k-th positions of all the radii
+//     they hold are one contiguous run (it was a row per radius, as many
+//     cache lines per load as radii in the warp: up to 12 on chip C);
+//   * pixels without the pad (the caller's padded copies are gone): a
+//     circle whose perimeter lies inside the unpadded plane reads centre
+//     pixel + dy * w + dx; one inside the padded plane checks each pixel
+//     against the unpadded one (outside: a pad pixel, no edge), in the same
+//     unrolled loop; any other (only a hill-climb neighbour can be) finds
+//     each pixel as the reference does, clamped flat index and all, one
+//     load after another;
+//   * the table is read through the read-only cache, so any radius works.
+// Tried on the H100 and dropped, each slower on the dense inputs (PERF.md
+// section 6; scripts/perimeter_variants.py): staging a chamber crop, or
+// the band of plane rows a block's circles reach, in shared memory;
+// regrouping a chunk's circles by radius; listing a block's interior
+// circles before the others, so that fewer warps check pixels; a
+// grid-stride loop; loads at clamped addresses in place of predicated
+// ones.
+// One launch per call; the wrapper (ops/score.py::perimeter_plan) picks
+// the lanes per circle from the number of circles.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -94,12 +97,10 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kDirectWarps = 4;
-constexpr int kBatchWarps = 8;
+constexpr int kThreads = 128;
 constexpr int kUnroll = 4;  // positions a lane loads at once
 
 enum Form { kOne = 0, kSeq = 1, kLanes8 = 2, kWindows = 3 };
-enum Mode { kDirect = 0, kBatch = 1 };
 
 struct Params {
   const float* angles;
@@ -108,10 +109,11 @@ struct Params {
   const int* circles;
   const uint8_t* valid;
   int n, per_plane;
-  // (max_radius + 1, L) entries {dy << 16 | dx & 0xffff, expected's bits}.
-  const int2* offsets;
+  // (L, max_radius + 1) entries {dy << 16 | dx & 0xffff, expected's bits}.
+  const int2* table;
   const int* lengths;
-  int max_radius, L, form, n_windows, lead;
+  int max_radius, L, n_windows, lead;
+  int lanes;  // lanes a circle
   float* out;
 };
 
@@ -125,18 +127,56 @@ __device__ __forceinline__ float align_of(float a, float expected) {
 }
 
 // The term of one perimeter position from its edge byte and angle.
-__device__ __forceinline__ float term_of(const Params& P, uint8_t e, float a,
-                                         float expected) {
-  if (P.form == kOne)  // the product itself: -0.0 where align < 0, no edge
+template <int kForm>
+__device__ __forceinline__ float term_of(uint8_t e, float a, float expected) {
+  if (kForm == kOne)  // the product itself: -0.0 where align < 0, no edge
     return __fmul_rn(align_of(a, expected), e ? 1.0f : 0.0f);
   return e ? align_of(a, expected) : 0.0f;
 }
 
-// Any perimeter pixel, as the reference finds it: (pr, pc) in the padded
-// plane, its flat index clamped into that plane; outside the unpadded plane
-// it is no edge and its angle is 0. Read from device memory.
-__device__ float far_term(const Params& P, int plane, long long pr,
-                          long long pc, float expected) {
+// Where a circle's perimeter pixels are: kInterior, all inside the
+// unpadded plane; kNear, all inside the padded plane (a pixel outside the
+// unpadded one is a pad pixel: no edge, angle 0); kFar, some outside it.
+enum Where { kInterior = 0, kNear = 1, kFar = 2 };
+
+struct Circle {
+  int row, col, r, plane, where;
+  int base;  // the centre's pixel in the plane stack (unpadded)
+};
+
+__device__ __forceinline__ Circle circle_of(const Params& P, int i) {
+  Circle C;
+  C.row = P.circles[3 * i];
+  C.col = P.circles[3 * i + 1];
+  C.r = min(max(P.circles[3 * i + 2], 0), P.max_radius);
+  C.plane = i / P.per_plane;
+  // r bounds every offset of the clipped radius.
+  const long long y = (long long)C.row - P.pad, x = (long long)C.col - P.pad;
+  C.where = y - C.r >= 0 && y + C.r < P.h && x - C.r >= 0 && x + C.r < P.w
+                ? kInterior
+            : C.row - C.r >= 0 && (long long)C.row + C.r < P.hp &&
+                    C.col - C.r >= 0 && (long long)C.col + C.r < P.wp
+                ? kNear
+                : kFar;
+  C.base = C.where == kFar
+               ? 0
+               : (int)(((long long)C.plane * P.h + y) * P.w + x);
+  return C;
+}
+
+// The table entry of position p of radius r.
+__device__ __forceinline__ int2 entry(const Params& P, int p, int r) {
+  return __ldg(P.table + p * (P.max_radius + 1) + r);
+}
+
+// The term at position p of circle C, its pixel found as the reference
+// finds it: the flat index into the padded plane, clamped.
+template <int kForm>
+__device__ float position_term(const Params& P, const Circle& C, int p) {
+  const int2 tb = entry(P, p, C.r);
+  const float expected = __int_as_float(tb.y);
+  long long pr = (long long)C.row + (tb.x >> 16);
+  long long pc = (long long)C.col + (int)(short)(tb.x & 0xffff);
   if (pr < 0 || pr >= P.hp || pc < 0 || pc >= P.wp) {
     const long long last = (long long)P.hp * P.wp - 1;
     long long flat = pr * P.wp + pc;
@@ -145,105 +185,63 @@ __device__ float far_term(const Params& P, int plane, long long pr,
     pc = flat - pr * P.wp;
   }
   const int y = (int)pr - P.pad, x = (int)pc - P.pad;
-  uint8_t e = 0;
-  float a = 0.0f;
-  if (y >= 0 && y < P.h && x >= 0 && x < P.w) {
-    const long long i = ((long long)plane * P.h + y) * P.w + x;
-    e = P.edges[i];
-    if (e || P.form == kOne) a = P.angles[i];
-  }
-  return term_of(P, e, a, expected);
+  if (y < 0 || y >= P.h || x < 0 || x >= P.w)
+    return term_of<kForm>(0, 0.0f, expected);  // a pad pixel
+  const long long i = ((long long)C.plane * P.h + y) * P.w + x;
+  const uint8_t e = __ldg(P.edges + i);
+  return term_of<kForm>(
+      e, e || kForm == kOne ? __ldg(P.angles + i) : 0.0f, expected);
 }
 
-// Lanes that score one circle: kWindows pairs window g with window W - 1 - g
-// in lane g, so that the lanes' shares of a perimeter are about even.
-__host__ __device__ constexpr int lanes_per_circle(int form, int n_windows) {
-  return form == kWindows ? (n_windows + 1) / 2 : form == kLanes8 ? 8 : 1;
-}
-
-// Per-warp shared memory: the chunk's valid circles.
-struct WarpSmem {
-  int4 circ[32];  // {row, col, radius, circle index}
-};
-
-__host__ __device__ constexpr int batch_fixed_smem() {
-  return (int)((kBatchWarps * sizeof(WarpSmem) + 15) / 16 * 16);
-}
-
-// Where a circle's perimeter pixels are: kInterior, all inside the
-// unpadded plane (pixel = centre pixel + dy * w + dx); kPadded, all inside
-// the padded plane (a pixel outside the unpadded one is a pad pixel: no
-// edge, angle 0); kFar, some outside it (far_term).
-enum Where { kInterior = 0, kPadded = 1, kFar = 2 };
-
-struct Circle {
-  int row, col, r, plane, where, base;  // base: the centre pixel (interior)
-};
-
-// The term at position p of circle C, from E / A (plane C.plane - plane0
-// at pitch w: shared memory when the plane is staged).
-template <bool kStaged>
-__device__ __forceinline__ float position_term(const Params& P,
-                                               const int2* offsets,
-                                               const uint8_t* E,
-                                               const float* A,
-                                               const Circle& C, int plane0,
-                                               int p) {
-  const int2 tb = offsets[C.r * P.L + p];
-  const int dy = tb.x >> 16, dx = (int)(short)(tb.x & 0xffff);
-  const float expected = __int_as_float(tb.y);
-  int pix;
-  if (C.where == kInterior) {
-    pix = C.base + dy * P.w + dx;
-  } else if (C.where == kPadded) {
-    const int y = C.row - P.pad + dy, x = C.col - P.pad + dx;
-    if ((unsigned)y >= (unsigned)P.h || (unsigned)x >= (unsigned)P.w)
-      return term_of(P, 0, 0.0f, expected);  // a pad pixel
-    pix = ((C.plane - plane0) * P.h + y) * P.w + x;
-  } else {
-    return far_term(P, C.plane, (long long)C.row + dy, (long long)C.col + dx,
-                    expected);
-  }
-  const uint8_t e = E[pix];
-  return term_of(P, e, e || kStaged || P.form == kOne ? A[pix] : 0.0f,
-                 expected);
-}
-
-// Sum, in order from +0, of the terms at positions p0, p0 + step, ... < p1.
-// A non-edge position adds nothing to such a sum, so only edge positions
-// are added: for an interior circle a lane loads the edge bytes of kUnroll
-// positions at once and then, in order, the angle and term of each edge.
-template <bool kStaged>
-__device__ __forceinline__ float fold_positions(
-    const Params& P, const int2* offsets, const uint8_t* E, const float* A,
-    const Circle& C, int plane0, int p0, int p1, int step) {
-  float acc = 0.0f;
-  if (C.where != kInterior) {
-    for (int p = p0; p < p1; p += step)
-      acc = __fadd_rn(acc, position_term<kStaged>(P, offsets, E, A, C,
-                                                  plane0, p));
-    return acc;
-  }
-  const int2* row = offsets + C.r * P.L;
-  for (int p = p0; p < p1; p += step * kUnroll) {
-    int pix[kUnroll];
-    float ex[kUnroll];
-    bool e[kUnroll];
+// acc[k % kAcc] += the terms of positions p0 + k * step < p1, each in order
+// from what acc holds. A non-edge position adds nothing to such a sum, so
+// only edge positions are added. A circle inside the padded plane loads
+// kUnroll (at least kAcc) positions at once: their table entries, then
+// their edge bytes (each checked against the unpadded plane if the circle
+// is not interior), then the angles of the edges among them. A circle with
+// pixels outside the padded plane goes one position after another.
+template <int kForm, int kAcc>
+__device__ __forceinline__ void fold(const Params& P, const Circle& C,
+                                     float (&acc)[kAcc], int p0, int p1,
+                                     int step) {
+  constexpr int kU = kUnroll > kAcc ? kUnroll : kAcc;
+  static_assert(kU % kAcc == 0, "accumulators must divide the unroll");
+  if (C.where == kFar) {
+    for (int p = p0; p < p1; p += step * kAcc) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kAcc; ++u)
+        if (p + u * step < p1)
+          acc[u] = __fadd_rn(acc[u],
+                             position_term<kForm>(P, C, p + u * step));
+    }
+    return;
+  }
+  const bool checked = C.where == kNear;
+  const int cy = C.row - P.pad, cx = C.col - P.pad;
+  for (int p = p0; p < p1; p += step * kU) {
+    int pix[kU];
+    float ex[kU], a[kU];
+    bool e[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
       const int q = p + u * step;
-      const int2 tb = row[q < p1 ? q : p0];
-      pix[u] = C.base + (tb.x >> 16) * P.w + (int)(short)(tb.x & 0xffff);
+      const int2 tb = entry(P, q < p1 ? q : p0, C.r);
+      const int dy = tb.x >> 16, dx = (int)(short)(tb.x & 0xffff);
+      pix[u] = C.base + dy * P.w + dx;
       ex[u] = __int_as_float(tb.y);
+      e[u] = q < p1 && (!checked || ((unsigned)(cy + dy) < (unsigned)P.h &&
+                                     (unsigned)(cx + dx) < (unsigned)P.w));
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      e[u] = p + u * step < p1 && E[pix[u]];
+    for (int u = 0; u < kU; ++u) e[u] = e[u] && __ldg(P.edges + pix[u]);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (e[u]) acc = __fadd_rn(acc, align_of(A[pix[u]], ex[u]));
+    for (int u = 0; u < kU; ++u)
+      a[u] = e[u] ? __ldg(P.angles + pix[u]) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (e[u])
+        acc[u % kAcc] = __fadd_rn(acc[u % kAcc], align_of(a[u], ex[u]));
   }
-  return acc;
 }
 
 // The positions of window w (slot k is position 32 w - lead + k) of a
@@ -253,245 +251,162 @@ __device__ __forceinline__ int2 window_range(const Params& P, int w,
   return make_int2(max(32 * w - P.lead, 0), min(32 * w - P.lead + 32, len));
 }
 
-// One warp scores up to 32 circles: lane l brings circle `idx` (-1: none).
-// Invalid ones get -inf. The valid ones go in passes of 32 / G circles, G
-// lanes each, the lanes of a circle taking the partial sums of XLA's
-// reduction (the header's list).
-template <bool kStaged>
-__device__ __forceinline__ void score_chunk(const Params& P, int idx,
-                                            WarpSmem& ws, const uint8_t* E,
-                                            const float* A, int plane0,
-                                            const int2* offsets) {
-  const int lane = threadIdx.x & 31;
-  const bool ok = idx >= 0 && (P.valid == nullptr || P.valid[idx]);
-  if (idx >= 0 && !ok) P.out[idx] = -__int_as_float(0x7F800000);
-  const unsigned mask = __ballot_sync(kFull, ok);
-  if (ok) {
-    const int* c = P.circles + 3LL * idx;
-    ws.circ[__popc(mask & ((1u << lane) - 1u))] =
-        make_int4(c[0], c[1], min(max(c[2], 0), P.max_radius), idx);
-  }
-  __syncwarp();
-  const int nv = __popc(mask), W = P.n_windows;
-  const int G = lanes_per_circle(P.form, W);
-  const int per_pass = 32 / G, c = lane / G, sub = lane - c * G;
-  for (int s = 0; s < nv; s += per_pass) {
-    const bool mine = c < per_pass && s + c < nv;
-    float acc = 0.0f, acc2 = 0.0f;
-    int len = 1, ci = -1;
-    if (mine) {
-      const int4 cr = ws.circ[s + c];
-      ci = cr.w;
-      len = __ldg(P.lengths + cr.z);
-      Circle C;
-      C.row = cr.x;
-      C.col = cr.y;
-      C.r = cr.z;
-      C.plane = ci / P.per_plane;
-      // r bounds every offset of the clipped radius.
-      const long long y = (long long)C.row - P.pad, x = (long long)C.col -
-                                                        P.pad;
-      C.where = y - C.r >= 0 && y + C.r < P.h && x - C.r >= 0 &&
-                        x + C.r < P.w
-                    ? kInterior
-                : y + P.pad - C.r >= 0 && y + P.pad + C.r < P.hp &&
-                        x + P.pad - C.r >= 0 && x + P.pad + C.r < P.wp
-                    ? kPadded
-                    : kFar;
-      C.base = C.where == kInterior
-                   ? (int)(((C.plane - plane0) * P.h + y) * P.w + x)
-                   : 0;
-      if (P.form == kOne) {
-        acc = position_term<kStaged>(P, offsets, E, A, C, plane0, 0);
-      } else if (P.form == kWindows) {
-        const int2 r1 = window_range(P, sub, len);
-        acc = fold_positions<kStaged>(P, offsets, E, A, C, plane0, r1.x,
-                                      r1.y, 1);
-        if (W - 1 - sub != sub) {
-          const int2 r2 = window_range(P, W - 1 - sub, len);
-          acc2 = fold_positions<kStaged>(P, offsets, E, A, C, plane0, r2.x,
-                                         r2.y, 1);
-        }
-      } else {
-        const int p0 = P.form == kLanes8 ? sub : 0;
-        acc = fold_positions<kStaged>(P, offsets, E, A, C, plane0, p0, len,
-                                      P.form == kLanes8 ? 8 : 1);
-      }
+// The whole sum of a circle's len positions in one lane, in XLA's order.
+template <int kForm>
+__device__ __forceinline__ float whole_sum(const Params& P, const Circle& C,
+                                           int len) {
+  if constexpr (kForm == kOne) {
+    return position_term<kForm>(P, C, 0);
+  } else if constexpr (kForm == kLanes8) {
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    fold<kForm, 8>(P, C, acc, 0, len, 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], acc[k + 4]);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) acc[k] = __fadd_rn(acc[k], acc[k + 2]);
+    return __fadd_rn(acc[0], acc[1]);
+  } else if constexpr (kForm == kSeq) {
+    float acc[1] = {0.0f};
+    fold<kForm, 1>(P, C, acc, 0, len, 1);
+    return acc[0];
+  } else {
+    float total = 0.0f;
+    for (int w = 0; w < P.n_windows; ++w) {
+      const int2 r = window_range(P, w, len);
+      float acc[1] = {0.0f};
+      fold<kForm, 1>(P, C, acc, r.x, r.y, 1);
+      total = __fadd_rn(total, acc[0]);
     }
-    // Combine a circle's partial sums in XLA's order, in its lane 0.
-    float total = acc;
-    if (P.form == kLanes8) {
+    return total;
+  }
+}
+
+// Lanes that score one circle when its positions are spread: kWindows
+// pairs window g with window W - 1 - g in lane g, so that the lanes' shares
+// of a perimeter are about even.
+__host__ __device__ constexpr int spread_lanes(int form, int n_windows) {
+  return form == kWindows ? (n_windows + 1) / 2 : form == kLanes8 ? 8 : 1;
+}
+
+// Lane `sub` of the G that score circle C: its share of the partial sums.
+template <int kForm>
+__device__ __forceinline__ float2 share_of(const Params& P, const Circle& C,
+                                           int len, int sub) {
+  float a[1] = {0.0f}, b[1] = {0.0f};
+  if constexpr (kForm == kLanes8) {
+    fold<kForm, 1>(P, C, a, sub, len, 8);
+  } else {
+    const int2 r1 = window_range(P, sub, len);
+    fold<kForm, 1>(P, C, a, r1.x, r1.y, 1);
+    if (P.n_windows - 1 - sub != sub) {
+      const int2 r2 = window_range(P, P.n_windows - 1 - sub, len);
+      fold<kForm, 1>(P, C, b, r2.x, r2.y, 1);
+    }
+  }
+  return make_float2(a[0], b[0]);
+}
+
+// Circle (b * warps + w) * (32 / G) + l / G in lanes l of warp w of block
+// b, G lanes a circle (kSpread: P.lanes, else 1).
+template <int kForm, bool kSpread>
+__global__ void __launch_bounds__(kThreads) perimeter_score(Params P) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int G = kSpread ? P.lanes : 1, per_warp = 32 / G, c = lane / G,
+            sub = lane - c * G;
+  const int first = (blockIdx.x * (kThreads / 32) + warp) * per_warp;
+  if (first >= P.n) return;  // the whole warp
+  const int i = first + c;
+  const bool mine = c < per_warp && i < P.n;
+  const bool ok = mine && (P.valid == nullptr || P.valid[i]);
+  if (mine && !ok && sub == 0) P.out[i] = -__int_as_float(0x7F800000);
+  if constexpr (!kSpread) {
+    if (!ok) return;
+    const Circle C = circle_of(P, i);
+    const int len = __ldg(P.lengths + C.r);
+    P.out[i] = __fdiv_rn(whole_sum<kForm>(P, C, len), (float)len);
+  } else {
+    float2 part = make_float2(0.0f, 0.0f);
+    int len = 1;
+    if (ok) {
+      const Circle C = circle_of(P, i);
+      len = __ldg(P.lengths + C.r);
+      part = share_of<kForm>(P, C, len, sub);
+    }
+    // Combine a circle's partial sums in XLA's order, in its first lane.
+    float total = part.x;
+    if constexpr (kForm == kLanes8) {
 #pragma unroll
       for (int d = 4; d > 0; d >>= 1)
         total = __fadd_rn(total, __shfl_down_sync(kFull, total, d, 8));
-    } else if (P.form == kWindows) {
+    } else {
       total = 0.0f;
-      for (int w = 0; w < W; ++w) {
-        const int g = w < G ? w : W - 1 - w;
-        const float first = __shfl_sync(kFull, acc, c * G + g);
-        const float second = __shfl_sync(kFull, acc2, c * G + g);
-        total = __fadd_rn(total, w < G ? first : second);
+      for (int w = 0; w < P.n_windows; ++w) {
+        const int g = w < G ? w : P.n_windows - 1 - w;
+        const float lo = __shfl_sync(kFull, part.x, c * G + g);
+        const float hi = __shfl_sync(kFull, part.y, c * G + g);
+        total = __fadd_rn(total, w < G ? lo : hi);
       }
     }
-    if (mine && sub == 0) P.out[ci] = __fdiv_rn(total, (float)len);
+    if (ok && sub == 0) P.out[i] = __fdiv_rn(total, (float)len);
   }
-  __syncwarp();
 }
 
-// Copies bytes [begin, begin + n) of `src` to dst + (begin & 15) + ...:
-// cp.async for the 16-byte chunks inside the range, plain loads for its
-// ragged ends (dst 16-byte aligned, src's base too).
-__device__ __forceinline__ void stage_range(unsigned char* dst,
-                                            const unsigned char* src,
-                                            long long begin, long long n) {
-  const long long first = begin & ~15LL, end = begin + n;
-  for (long long a = first + 16LL * threadIdx.x; a < end;
-       a += 16LL * blockDim.x) {
-    unsigned char* d = dst + (a - first);
-    if (a >= begin && a + 16 <= end) {
-      const unsigned s = (unsigned)__cvta_generic_to_shared(d);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                   "l"(src + a));
-    } else {
-      for (int m = 0; m < 16; ++m)
-        if (a + m >= begin && a + m < end) d[m] = src[a + m];
+template <int kForm>
+int launch(const Params& P, cudaStream_t s) {
+  const int per_block = (kThreads / 32) * (32 / P.lanes);
+  const unsigned blocks = (unsigned)((P.n + per_block - 1) / per_block);
+  if constexpr (kForm == kLanes8 || kForm == kWindows) {
+    if (P.lanes > 1) {
+      perimeter_score<kForm, true><<<blocks, kThreads, 0, s>>>(P);
+      return (int)cudaGetLastError();
     }
   }
-}
-
-__host__ __device__ constexpr long long table_bytes(const Params& P) {
-  return ((P.max_radius + 1LL) * P.L * 8 + 15) / 16 * 16;
-}
-
-// Pixels from device memory. The block stages the perimeter table in shared
-// memory; warp w of block b takes the chunks of `chunk` circles b *
-// kDirectWarps + w, then every gridDim.x * kDirectWarps-th after it.
-__global__ void __launch_bounds__(kDirectWarps * 32)
-    perimeter_direct(Params P, int chunk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  WarpSmem& ws = reinterpret_cast<WarpSmem*>(smem)[warp];
-  unsigned char* tab = smem + kDirectWarps * sizeof(WarpSmem);
-  stage_range(tab, reinterpret_cast<const unsigned char*>(P.offsets), 0,
-              (P.max_radius + 1LL) * P.L * 8);
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  const int2* offsets = reinterpret_cast<const int2*>(tab);
-  for (long long first = ((long long)blockIdx.x * kDirectWarps + warp) * chunk;
-       first < P.n; first += (long long)gridDim.x * kDirectWarps * chunk) {
-    const long long i = first + lane;
-    score_chunk<false>(P, lane < chunk && i < P.n ? (int)i : -1, ws, P.edges,
-                       P.angles, 0, offsets);
-  }
-}
-
-// Pixels staged: block b stages plane b / split of the batch (angles, then
-// edge bytes, each one contiguous range) and the perimeter table, and its
-// `split` blocks take the plane's circles' chunks of 32 in turn.
-__global__ void __launch_bounds__(kBatchWarps * 32)
-    perimeter_batch(Params P, int split) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  WarpSmem& ws = reinterpret_cast<WarpSmem*>(smem)[warp];
-  const int plane = blockIdx.x / split, part = blockIdx.x - plane * split;
-  const long long el = (long long)plane * P.h * P.w, n = (long long)P.h * P.w;
-  unsigned char* tab = smem + batch_fixed_smem();
-  unsigned char* dst_a = tab + table_bytes(P);
-  unsigned char* dst_e = dst_a + (n * 4 + 31) / 16 * 16;
-  stage_range(tab, reinterpret_cast<const unsigned char*>(P.offsets), 0,
-              (P.max_radius + 1LL) * P.L * 8);
-  stage_range(dst_a, reinterpret_cast<const unsigned char*>(P.angles), el * 4,
-              n * 4);
-  stage_range(dst_e, P.edges, el, n);
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  const int2* offsets = reinterpret_cast<const int2*>(tab);
-  const float* A = reinterpret_cast<const float*>(dst_a + ((el * 4) & 15));
-  const uint8_t* E = dst_e + (el & 15);
-  const int first = plane * P.per_plane;
-  for (int v0 = (part * kBatchWarps + warp) * 32; v0 < P.per_plane;
-       v0 += split * kBatchWarps * 32) {
-    const int v = v0 + lane;
-    score_chunk<true>(P, v < P.per_plane ? first + v : -1, ws, E, A, plane,
-                      offsets);
-  }
-}
-
-long long batch_smem(int h, int w, int max_radius, int L) {
-  // The table, the angles (+ up to 16 bytes of alignment) and the edges.
-  return batch_fixed_smem() + ((max_radius + 1LL) * L * 8 + 15) / 16 * 16 +
-         5LL * h * w + 64;
+  perimeter_score<kForm, false><<<blocks, kThreads, 0, s>>>(P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) a block of the batch plan needs for planes of
-// h x w (the plane's angles and edges, the warps' circle lists and the
-// perimeter table of max_radius, L positions).
-int mg_perimeter_smem(int h, int w, int max_radius, int L) {
-  const long long bytes = batch_smem(h, w, max_radius, L);
-  return bytes > (1 << 30) ? (1 << 30) : (int)bytes;
-}
-
 // Scores of `n` circles (row, col, radius) int32, in the coordinates of
 // the planes padded by `pad`, `per_plane` consecutive circles on each
 // plane (n for one plane). `angles` (n / per_plane, h, w) f32 and `edges`
-// uint8 0/1, both 16-byte aligned; `valid` n uint8 (null: all valid) gives
-// -inf where 0. Tables: `offsets` (max_radius + 1, L) int32 pairs
-// {dy << 16 | dx & 0xffff, expected's f32 bits}, `lengths` (max_radius +
-// 1,) int32. `mode` 0: direct, `chunk` circles per warp (at least one
-// pass's); 1: batch, `split` blocks per plane. One launch on `stream`, no
+// uint8 0/1; `valid` n uint8 (null: all valid) gives -inf where 0. Tables:
+// `table` (L, max_radius + 1) int32 pairs {dy << 16 | dx & 0xffff,
+// expected's f32 bits}, `lengths` (max_radius + 1,) int32. `lanes` a
+// circle: 1, or the lanes that spread its positions (ceil(ceil(L / 32) /
+// 2) for L > 32, 8 for L = 16-32; at most 32). One launch on `stream`, no
 // synchronisation. Returns cudaGetLastError().
 int mg_perimeter_score(const void* angles, const void* edges, int h, int w,
                        int pad, const void* circles, const void* valid,
-                       int n, int per_plane, const void* offsets,
-                       const void* lengths, int max_radius, int L, int mode,
-                       int chunk, int split, void* out, void* stream) {
+                       int n, int per_plane, const void* table,
+                       const void* lengths, int max_radius, int L, int lanes,
+                       void* out, void* stream) {
   if (n <= 0) return 0;
   const int form = L == 1 ? kOne : L < 16 ? kSeq : L <= 32 ? kLanes8
                                                            : kWindows;
   const int n_windows = form == kWindows ? (L + 31) / 32 : 1;
-  if (n_windows > 32 || per_plane <= 0 || chunk < 1 || chunk > 32 ||
-      split < 1)
+  if ((lanes != 1 && lanes != spread_lanes(form, n_windows)) || lanes > 32 ||
+      per_plane <= 0)
     return (int)cudaErrorInvalidValue;
-  Params P = {static_cast<const float*>(angles),
-              static_cast<const uint8_t*>(edges),
-              h, w, pad, h + 2 * pad, w + 2 * pad,
-              static_cast<const int*>(circles),
-              static_cast<const uint8_t*>(valid), n, per_plane,
-              static_cast<const int2*>(offsets),
-              static_cast<const int*>(lengths), max_radius, L, form,
-              n_windows, form == kWindows ? (n_windows * 32 - L) / 2 : 0,
-              static_cast<float*>(out)};
+  const Params P = {static_cast<const float*>(angles),
+                    static_cast<const uint8_t*>(edges),
+                    h, w, pad, h + 2 * pad, w + 2 * pad,
+                    static_cast<const int*>(circles),
+                    static_cast<const uint8_t*>(valid), n, per_plane,
+                    static_cast<const int2*>(table),
+                    static_cast<const int*>(lengths), max_radius, L,
+                    n_windows,
+                    form == kWindows ? (n_windows * 32 - L) / 2 : 0, lanes,
+                    static_cast<float*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == kDirect) {
-    // At least the circles one pass of a warp scores, so that no lane of a
-    // warp idles for want of circles.
-    chunk = max(chunk, 32 / lanes_per_circle(form, n_windows));
-    int device = 0, sms = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    const long long chunks = ((long long)n + chunk - 1) / chunk;
-    const long long blocks = (chunks + kDirectWarps - 1) / kDirectWarps;
-    const int smem = (int)(kDirectWarps * sizeof(WarpSmem) + table_bytes(P));
-    const cudaError_t err = cudaFuncSetAttribute(
-        perimeter_direct, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    perimeter_direct<<<(unsigned)min(blocks, 16LL * sms), kDirectWarps * 32,
-                       smem, s>>>(P, chunk);
-    return (int)cudaGetLastError();
+  switch (form) {
+    case kOne: return launch<kOne>(P, s);
+    case kSeq: return launch<kSeq>(P, s);
+    case kLanes8: return launch<kLanes8>(P, s);
+    default: return launch<kWindows>(P, s);
   }
-  const int smem = mg_perimeter_smem(h, w, max_radius, L);
-  const cudaError_t err = cudaFuncSetAttribute(
-      perimeter_batch, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  perimeter_batch<<<(n / per_plane) * split, kBatchWarps * 32, smem, s>>>(
-      P, split);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

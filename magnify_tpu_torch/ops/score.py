@@ -40,7 +40,7 @@ from magnify_tpu_torch.ops.edge import fma_f32
 __all__ = ["RingWeights", "dedupe_circles", "perimeter_plan",
            "perimeter_score", "raster_key_space", "ring_corr",
            "ring_corr_plain", "ring_weights", "score_circles",
-           "score_circles_plain", "score_maps", "sum_form"]
+           "score_circles_plain", "score_maps", "spread_lanes", "sum_form"]
 
 _HARMONICS = (1, 3, 5, 7)
 _COEFFS = tuple(8.0 / (np.pi**2 * k**2) for k in _HARMONICS)
@@ -412,14 +412,16 @@ def _perimeter_tensors(max_radius: int, device: str):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_table(max_radius: int, device: str):
-    """The kernel's perimeter table: (max_radius + 1, L, 2) int32 pairs
-    {dy << 16 | dx & 0xffff, the f32 bits of the expected angle}."""
+    """The kernel's perimeter table, position-major: (L, max_radius + 1,
+    2) int32 pairs {dy << 16 | dx & 0xffff, the f32 bits of the expected
+    angle}."""
     from magnify_tpu_torch.ops.geom import perimeter_tables
 
     offsets, _lengths, expected = perimeter_tables(max_radius)
     dy, dx = (offsets[..., i].astype(np.int64) for i in (0, 1))
     packed = ((dy << 16) | (dx & 0xFFFF)).astype(np.uint32).view(np.int32)
     table = np.stack([packed, expected.view(np.int32)], axis=-1)
+    table = table.transpose(1, 0, 2)
     return torch.as_tensor(np.ascontiguousarray(table), device=device)
 
 
@@ -551,53 +553,40 @@ def score_circles_plain(grad_angles, edges, circles, valid=None, *,
     return scores
 
 
-# Launch plans of the kernel (``csrc/perimeter_score.cu``'s ``Mode``).
-_DIRECT, _BATCH = 0, 1
-#: A batch of planes is staged in shared memory when its circles read at
-#: least this many perimeter positions per pixel of a plane.
-TILED_READS_PER_PIXEL = 8
-#: Warps a direct launch should give each SM before a warp takes more
-#: than one circle.
-_DIRECT_WARPS_PER_SM = 32
-#: Blocks that share one plane of a batch: at least 4 (a crop's valid rows
-#: are few thousand at most; more blocks in flight hide the latency), more
-#: where a small batch would leave SMs idle.
-_MIN_SPLIT, _MAX_SPLIT = 4, 8
+#: Warps a SM should have in flight: a call with fewer circles than their
+#: lanes spreads each circle's positions over lanes.
+_WARPS_PER_SM = 32
 
 
-def perimeter_plan(grad_angles, circles, *, max_radius: int) -> tuple:
-    """How :func:`perimeter_score` launches for these shapes: (plan, circles
-    per warp chunk, blocks per plane).
+def spread_lanes(n_pos: int) -> int:
+    """Lanes that share a circle of ``n_pos`` perimeter positions when its
+    positions are spread: one per pair of 32-position windows (L > 32), 8
+    (the 8 vector lanes, L = 16-32), else 1."""
+    form = sum_form(n_pos)
+    if form == "windows":
+        return (-(-n_pos // 32) + 1) // 2
+    return 8 if form == "lanes8" else 1
 
-    "batch": a (P, H, W) batch whose circles read at least
-    :data:`TILED_READS_PER_PIXEL` perimeter positions per pixel (the chip
-    path's chamber crops): blocks stage one plane each in shared memory;
-    "direct": every pixel read from device memory (one plane, or a batch
-    with few circles per plane, as the hill-climb's 27), one warp per chunk
-    of circles. One launch either way.
-    """
-    h, w = grad_angles.shape[-2:]
+
+def perimeter_plan(circles, *, max_radius: int) -> int:
+    """Lanes a circle takes in :func:`perimeter_score`'s launch: one where
+    the call has circles for :data:`_WARPS_PER_SM` warps on every SM at one
+    lane each, else :func:`spread_lanes` (where they are at most 32)."""
     n_pos = _perimeter_tensors(int(max_radius), "cpu")[0].shape[1]
     n = int(np.prod(circles.shape[:-1]))
-    sms = _sm_count(circles.device)
-    if circles.ndim == 3 and (
-            circles.shape[1] * n_pos >= TILED_READS_PER_PIXEL * h * w) and (
-            0 < _build.load().mg_perimeter_smem(
-                h, w, int(max_radius), n_pos) <= _MAX_SMEM):
-        planes = circles.shape[0]
-        return "batch", 32, min(_MAX_SPLIT, max(_MIN_SPLIT,
-                                                -(-2 * sms // planes)))
-    chunk = 32
-    while chunk > 1 and n < chunk * sms * _DIRECT_WARPS_PER_SM:
-        chunk //= 2
-    return "direct", chunk, 1
+    lanes = spread_lanes(n_pos)
+    full = _sm_count(circles.device) * _WARPS_PER_SM * 32
+    return lanes if n < full and lanes <= 32 else 1
 
 
 def perimeter_score(grad_angles, edges, circles, valid=None, *,
-                    max_radius: int, pad: int | None = None) -> torch.Tensor:
+                    max_radius: int, pad: int | None = None,
+                    plan: int | None = None) -> torch.Tensor:
     """The CUDA kernel ``csrc/perimeter_score.cu``: one launch on the
     current stream (its plan: :func:`perimeter_plan`), no host sync.
-    Arguments as :func:`score_circles`; every tensor on one CUDA device."""
+    Arguments as :func:`score_circles`; every tensor on one CUDA device.
+    ``plan`` (lanes a circle) overrides :func:`perimeter_plan`'s, for
+    timing."""
     global perimeter_launches, perimeter_batched_launches
     dev = circles.device
     if dev.type != "cuda":
@@ -622,23 +611,12 @@ def perimeter_score(grad_angles, edges, circles, valid=None, *,
                          f"padded by {pad} exceed the kernel's indices")
     offsets, lengths, _expected = _perimeter_tensors(int(max_radius),
                                                      str(dev))
-    if offsets.shape[1] > 32 * 32:
-        raise ValueError(f"perimeter_score: max_radius {max_radius} gives "
-                         f"{offsets.shape[1]} perimeter positions, over the "
-                         "kernel's 1,024")
     out = torch.empty(circles.shape[:-1], dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    plan, chunk, split = perimeter_plan(grad_angles, circles,
-                                        max_radius=max_radius)
-    # Batch planes are staged in 16-byte copies from the planes' base
-    # addresses, which must be 16-byte aligned (a fresh allocation is).
+    lanes = plan or perimeter_plan(circles, max_radius=max_radius)
     angles = grad_angles.contiguous()
     edges_u8 = edges.contiguous().view(torch.uint8)
-    if angles.data_ptr() % 16:
-        angles = angles.clone()
-    if edges_u8.data_ptr() % 16:
-        edges_u8 = edges_u8.clone()
     circ = circles.to(torch.int32).contiguous()
     valid_u8 = None if valid is None else \
         valid.to(torch.bool).contiguous().view(torch.uint8)
@@ -647,9 +625,8 @@ def perimeter_score(grad_angles, edges, circles, valid=None, *,
         angles.data_ptr(), edges_u8.data_ptr(), h, w, pad, circ.data_ptr(),
         None if valid_u8 is None else valid_u8.data_ptr(), n, per_plane,
         _kernel_table(int(max_radius), str(dev)).data_ptr(),
-        lengths.data_ptr(), int(max_radius), offsets.shape[1],
-        _BATCH if plan == "batch" else _DIRECT, chunk, split, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        lengths.data_ptr(), int(max_radius), offsets.shape[1], lanes,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     perimeter_launches += 1
     perimeter_batched_launches += int(circles.ndim == 3)
     _build.check(err, "mg_perimeter_score")

@@ -199,38 +199,41 @@ def _score_inputs(seed, planes, h, w, n, max_radius, pad, ordered=False,
 
 
 @pytest.mark.parametrize(
-    "max_radius,planes,h,w,n,ordered,prefix,plan", [
-        # Every sum form (L = 1, 8, 12, 24, 68, 88, 92), pixels read
-        # straight from device memory, one circle per warp and (a sparse
-        # 2000 x 2100 plane) 32.
-        (0, 1, 120, 150, 2000, False, False, "direct"),
-        (1, 1, 120, 150, 2000, False, False, "direct"),
-        (2, 1, 120, 150, 2000, False, False, "direct"),
-        (4, 1, 120, 150, 2000, False, False, "direct"),
-        (12, 1, 120, 150, 2000, False, False, "direct"),
-        (15, 1, 120, 150, 2000, False, False, "direct"),
-        (16, 1, 120, 150, 2000, False, False, "direct"),
-        (15, 1, 2000, 2100, 200000, True, False, "direct"),
+    "max_radius,planes,h,w,n,ordered,prefix", [
+        # Every sum form (L = 1, 8, 12, 24, 68, 88, 92), and a sparse
+        # 2000 x 2100 plane.
+        (0, 1, 120, 150, 2000, False, False),
+        (1, 1, 120, 150, 2000, False, False),
+        (2, 1, 120, 150, 2000, False, False),
+        (4, 1, 120, 150, 2000, False, False),
+        (12, 1, 120, 150, 2000, False, False),
+        (15, 1, 120, 150, 2000, False, False),
+        (16, 1, 120, 150, 2000, False, False),
+        (15, 1, 2000, 2100, 200000, True, False),
         # Dense planes of odd widths, the circles sorted (as the dedupe
         # emits them) or not.
-        (12, 1, 150, 171, 30000, True, False, "direct"),
-        (12, 1, 150, 171, 30000, False, False, "direct"),
-        (0, 1, 40, 45, 20000, True, False, "direct"),
-        (2, 1, 57, 131, 20000, True, False, "direct"),
-        (16, 1, 90, 201, 40000, True, False, "direct"),
-        # Batches of planes staged one per block, with valid prefixes and an
-        # all-invalid plane; and the hill-climb's few circles per plane.
-        (15, 7, 72, 72, 4096, True, True, "batch"),
-        (16, 5, 72, 72, 4096, False, False, "batch"),
-        (4, 3, 33, 47, 3000, False, True, "batch"),
-        (1, 5, 20, 21, 1000, False, True, "batch"),
-        (16, 64, 72, 72, 27, False, False, "direct"),
-        (2, 9, 35, 37, 60, False, True, "direct"),
+        (12, 1, 150, 171, 30000, True, False),
+        (12, 1, 150, 171, 30000, False, False),
+        (0, 1, 40, 45, 20000, True, False),
+        (2, 1, 57, 131, 20000, True, False),
+        (16, 1, 90, 201, 40000, True, False),
+        # A radius whose table (81 x 456 entries, 295 KB) is larger than a
+        # block's shared memory.
+        (80, 1, 300, 317, 3000, True, False),
+        # Batches of planes with valid prefixes and an all-invalid plane;
+        # and the hill-climb's few circles per plane.
+        (15, 7, 72, 72, 4096, True, True),
+        (16, 5, 72, 72, 4096, False, False),
+        (4, 3, 33, 47, 3000, False, True),
+        (1, 5, 20, 21, 1000, False, True),
+        (16, 64, 72, 72, 27, False, False),
+        (2, 9, 35, 37, 60, False, True),
     ])
 def test_perimeter_score_kernel_matches_plain(cuda, max_radius, planes, h, w,
-                                              n, ordered, prefix, plan):
+                                              n, ordered, prefix):
     """Bit for bit against the twin (on the CPU and on the card), in the
-    plan expected for the shapes, one launch per call."""
+    plan the shapes give and in the other: one lane a circle, or the lanes
+    that spread its positions; one launch per call."""
     pad = 2 * max_radius
     angles, edges, circles, valid = _score_inputs(
         max_radius * 100 + planes, planes, h, w, n, max_radius, pad,
@@ -241,16 +244,34 @@ def test_perimeter_score_kernel_matches_plain(cuda, max_radius, planes, h, w,
     kw = dict(max_radius=max_radius, pad=pad)
     want = tscore.score_circles_plain(*args, **kw)
     on_card = [a.to(cuda) for a in args]
-    assert tscore.perimeter_plan(on_card[0], on_card[2],
-                                 max_radius=max_radius)[0] == plan
-    before = tscore.perimeter_launches
-    got = tscore.score_circles(*on_card, **kw)
-    assert tscore.perimeter_launches == before + 1
-    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
-                                  want.numpy().view(np.int32))
+    n_pos = tscore._perimeter_tensors(max_radius, "cpu")[0].shape[1]
+    spread = tscore.spread_lanes(n_pos)
+    for plan in (None, 1, spread):
+        before = tscore.perimeter_launches
+        if plan is None:
+            got = tscore.score_circles(*on_card, **kw)
+        else:
+            got = tscore.perimeter_score(*on_card, **kw, plan=plan)
+        assert tscore.perimeter_launches == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.numpy().view(np.int32),
+                                      err_msg=f"plan {plan}")
     # The twin is the same on the card.
     assert torch.equal(tscore.score_circles_plain(*on_card, **kw).cpu(),
                        want)
+
+
+def test_perimeter_plan_follows_the_circles(cuda):
+    """One lane a circle where a call has circles for 32 warps a SM, else
+    the lanes of the sum's partial sums."""
+    full = tscore._sm_count(cuda) * 32 * 32
+    for n, max_radius, want in ((27, 12, 2), (full - 1, 12, 2),
+                                (full, 12, 1), (5, 4, 8), (5, 2, 1),
+                                (5, 80, 8)):
+        circles = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+        assert tscore.perimeter_plan(circles, max_radius=max_radius) == want
+    circles = torch.zeros((64, 27, 3), dtype=torch.int32, device=cuda)
+    assert tscore.perimeter_plan(circles, max_radius=15) == 2
 
 
 def test_ransac_stages_on_the_card_equal_the_cpu(cuda):
