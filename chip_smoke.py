@@ -10,11 +10,13 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
 1. prints the card's name and power limit (``nvidia-smi``) and the build
    time;
 2. kernel phase: holds each kernel against its plain torch twin on the card,
-   bit for bit: hysteresis on the Canny masks of frame A (1024^2) and of
-   frame B's stitched plane (1844^2), on random masks at 2048^2 and 4096^2,
+   bit for bit: hysteresis on the Canny masks of frame A (1024^2), of
+   frame B's stitched plane (1844^2) and of the out-of-core stack's base
+   plane (4096^2, 1,760 beads), on random masks at 2048^2 and 4096^2,
    with strong pixels outside the weak mask, and on a serpentine chain
    across many small tiles; the int8 ring correlation on the padded
-   features of frames A and B (8 x 1072^2, 8 x 1892^2; radii 8-12); the
+   features of frames A and B and of the out-of-core plane (8 x 1072^2,
+   8 x 1892^2, 8 x 4144^2; radii 8-12); the
    RANSAC perimeter scorer on every input the RANSAC main paths give it,
    taken from one ``detector="ransac"`` run of each at 5,000,000 proposals:
    frame A's unique proposals (radii 8-12, L = 68 perimeter positions), and
@@ -75,6 +77,26 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
      button within 1 px, the warm wall time, the unique proposals and the
      peak device memory); ms per frame beside the dense detector's on the
      same frame;
+   * stacks read from disk (in a temporary directory, deleted at the end):
+     ``beads`` and ``image`` on frame B written as
+     ``b/(channel)/tile_(row)_(col).tif`` (8 files) must equal the
+     in-memory runs in every variable (and the golden file); ``beads`` on
+     frame A with a flat field given as a TIFF path must equal the same
+     array; ``microfluidic_chip`` on frame C written as one 2-page TIFF must
+     equal the in-memory frame C run in every variable; each prints its
+     warm time beside the in-memory one;
+   * out of core: 4 x 20 x 4096^2 uint16 pages (2.68 GB, 5.0 x
+     ``components.find.MAX_RESIDENT_BYTES``) written as
+     ``ooc/(channel)/s.ome.tif`` (4 OME-TIFFs of 20 pages), then, in a
+     child process (``--out-of-core DIR``) so that its peak RSS is its
+     own, ``beads`` (dense, the search planes one at a time through both
+     dense kernels) -> ``quantify`` -> ``save`` (npz) -> ``load``: the
+     loaded result must equal the saved one; 84 pages decoded (every page
+     once, each search channel's t = 0 page once more); every intensity
+     rising with t; peak RSS above the warm baseline below half the
+     stack's bytes; the marks equal to the 4 search planes run in memory,
+     every one of the 1,760 drawn beads within 1 px; prints the write
+     time, each stage's wall time and RSS peak;
 4. decode at device scale: ``identify_mrbles`` alone on 8,192 marks x 5
    channels x 32^2 ROIs over the 24-code panel; tags on ``cuda`` must equal
    tags on ``cpu``; prints the stage times on both;
@@ -82,7 +104,8 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    all main paths, ``launches_by_path`` and ``launches_per_call``,
    ``ms``/``plain_ms``/``bound_ms``/``bound_share``/``library_ms`` at frame
    A's shapes and the same keys with ``_frame_b`` at frame B's,
-   ``bound_by``, ``max_abs_err``; the batched entries have the same keys
+   ``bound_by``, ``max_abs_err``, for hysteresis and ring_corr also with
+   ``_ooc`` at the out-of-core plane; the batched entries have the same keys
    with ``_rois_c8`` and ``_rois_c``; perimeter_score's record has them for
    each of its inputs above (``profiler_ms`` beside ``ms``; ``bound_share``
    over ``profiler_ms`` and ``bound_share_events`` over ``ms``; the lanes a
@@ -93,7 +116,7 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
 
 Any failed check raises: the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 at once. ``--kernels-only`` stops after
-phase 2.
+phase 2. ``--out-of-core DIR`` is the child of the out-of-core phase.
 
 The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`,
 :func:`frame_c8`, :func:`frame_c`) need
@@ -112,6 +135,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -524,10 +548,11 @@ def _hysteresis_record(dev, planes, rois) -> dict:
 
     from magnify_tpu_torch.ops import hysteresis as hyst
 
-    (strong_a, weak_a), (strong_b, weak_b) = planes
+    (strong_a, weak_a), (strong_b, weak_b), (strong_o, weak_o) = planes
     rng = np.random.default_rng(7)
     cases = [("frame A masks", strong_a, weak_a, None),
-             ("frame B masks", strong_b, weak_b, None)]
+             ("frame B masks", strong_b, weak_b, None),
+             ("out-of-core plane masks", strong_o, weak_o, None)]
     for n in (2048, 4096):
         s = rng.random((n, n)) > 0.99
         w = s | (rng.random((n, n)) > 0.65)
@@ -593,7 +618,8 @@ def _hysteresis_record(dev, planes, rois) -> dict:
            "source": "magnify_tpu_torch/csrc/hysteresis.cu",
            "replaces": "magnify_tpu/ops/pallas_kernels.py:131",
            "launches_per_call": hyst.LAUNCHES_PER_CALL, "max_abs_err": 0}
-    timed = [("", strong_a, weak_a), ("_frame_b", strong_b, weak_b)]
+    timed = [("", strong_a, weak_a), ("_frame_b", strong_b, weak_b),
+             ("_ooc", strong_o, weak_o)]
     timed += [(f"_rois_{tag.lower()}", s, w) for tag, (s, w) in rois.items()]
     for tag, s, w in timed:
         k_ms = _event_ms(lambda: hyst.hysteresis(s, w), 100)
@@ -608,7 +634,7 @@ def _hysteresis_record(dev, planes, rois) -> dict:
     # The whole-plane and tiled forms of the TPU kernel are one kernel
     # here; the random 2048^2 and 4096^2 masks time it past the whole-plane
     # form's size.
-    for name, s, w, _ in cases[2:4]:
+    for name, s, w, _ in cases[3:5]:
         kn = _event_ms(lambda: hyst.hysteresis(s, w), 20)
         pn = _event_once_ms(lambda: hyst.hysteresis_plain(s, w))
         bn, _by = _bound(3 * s.numel(), 0)
@@ -631,7 +657,8 @@ def _ring_corr_record(dev, feats_ab, roi_feats) -> dict:
 
     # (key suffix, name, features, weights, plain twin timed with a warm-up)
     cases = [("", "frame A", feats_ab[0], (8, 12), True),
-             ("_frame_b", "frame B", feats_ab[1], (8, 12), True)]
+             ("_frame_b", "frame B", feats_ab[1], (8, 12), True),
+             ("_ooc", "the out-of-core plane", feats_ab[2], (8, 12), False)]
     for tag, (feats, radii) in roi_feats.items():
         cases.append((f"_rois_{tag.lower()}", f"ROI crops of frame {tag}",
                       feats, radii, feats.shape[0] <= 64))
@@ -956,6 +983,7 @@ def _perimeter_record(dev) -> dict:
 def kernel_phase(dev) -> list:
     strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
     strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
+    strong_o, weak_o, feats_o = _stages(ooc_base()[0], dev)
     # The chamber crops the chip path refines: around the drawn centers, at
     # the default ROI length 72 and each frame's radii.
     c8_centers = np.array([[(i + 1) * 100, (j + 1) * 100]
@@ -965,9 +993,10 @@ def kernel_phase(dev) -> list:
     stack_c, centers_c, _blank = frame_c()
     sc, wc, fc = _roi_stages(stack_c[0], centers_c.reshape(-1, 2), 72, 4, 15,
                              dev)
-    return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b)),
+    return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b),
+                                     (strong_o, weak_o)),
                                {"C8": (s8, w8), "C": (sc, wc)}),
-            _ring_corr_record(dev, (feats_a, feats_b),
+            _ring_corr_record(dev, (feats_a, feats_b, feats_o),
                               {"C8": (f8, (8, 16)), "C": (fc, (4, 15))}),
             _perimeter_record(dev)]
 
@@ -1185,7 +1214,11 @@ def main_path(records: list, dev) -> None:
     _say(f"frame M: {ms_stream_m:.3f} ms per frame streamed (6 frames, "
          f"depth 2, median of 3) vs {ms_serial_m:.3f} ms serial")
 
-    chip_ms = chip_paths(mt, dev, golden, by_path)
+    results = {"B": xb}
+    chip_ms = chip_paths(mt, dev, golden, by_path, results)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        disk_paths(mt, dev, golden, by_path, results,
+                   {"B": ms_b, "C": chip_ms["C"]}, pathlib.Path(tmp))
     ransac_paths(mt, dev, golden, by_path, dict(chip_ms, A=ms_a))
 
     batched_by_path = by_path.pop("_batched")
@@ -1204,8 +1237,8 @@ def main_path(records: list, dev) -> None:
                     for path, counts in batched_by_path.items()
                     if counts[name]}
         if not launches or set(launches) - {
-                "chip_c8", "chip_c8_2ch2t", "chip_c", "chip_c8 ransac",
-                "chip_c ransac"}:
+                "chip_c8", "chip_c8_2ch2t", "chip_c", "chip_c from a TIFF",
+                "chip_c8 ransac", "chip_c ransac"}:
             raise AssertionError(f"{name}: launched in {sorted(launches)}")
         brec = {k: rec[k] for k in ("route", "source", "replaces",
                                     "launches_per_call", "max_abs_err",
@@ -1222,9 +1255,10 @@ def main_path(records: list, dev) -> None:
              f"{launches}")
 
 
-def chip_paths(mt, dev, golden, by_path: dict) -> dict:
+def chip_paths(mt, dev, golden, by_path: dict, results: dict) -> dict:
     """``microfluidic_chip`` on frames C8, C8V (golden, cuda == cpu) and C
-    (truth). Returns the warm ms of frames C8 and C."""
+    (truth). Returns the warm ms of frames C8 and C; frame C's result goes
+    into ``results["C"]``."""
     import torch
 
     from magnify_tpu_torch.components import find
@@ -1282,6 +1316,7 @@ def chip_paths(mt, dev, golden, by_path: dict) -> dict:
                              f"{per_channel}")
     peak = torch.cuda.max_memory_allocated()
     _check_frame_c("frame C", xc)
+    results["C"] = xc
     ms_c = _time_ms(run_c, 3)
     _say(f"frame C warm microfluidic_chip(): {ms_c:.3f} ms (median of 3, one "
          f"searched + one copied timestep); last_chip_timings "
@@ -1502,9 +1537,410 @@ def decode_phase(dev) -> None:
         raise AssertionError("decode: not every code of the panel decoded")
 
 
+# --------------------------------------------------------------------------
+# Stacks read from disk
+# --------------------------------------------------------------------------
+
+# The out-of-core stack: 4 channel directories, each one OME-TIFF of 20
+# time pages of 4096^2 uint16 (2.68 GB on disk, 5.0 x the finder's 512 MiB
+# MAX_RESIDENT_BYTES), read as ``ooc/(channel)/s.ome.tif``.
+OOC_CHANNELS = ("ch0", "ch1", "ch2", "ch3")
+OOC_TIMES = 20
+OOC_SIDE = 4 * TILE
+OOC_PATTERN = "ooc/(channel)/s.ome.tif"
+OOC_KW = dict(min_bead_diameter=16, max_bead_diameter=24, overlap=0,
+              detector="dense")
+
+
+@functools.lru_cache(maxsize=1)
+def ooc_base(seed: int = 5):
+    """The out-of-core stack's base plane: frame A's layout and density
+    tiled 4 x 4 over 4096^2 uint16 noise, 1,760 beads of radius 8-12.
+    Every (channel, time) plane is this plane scaled by ``1 + 0.05 t``.
+    Returns (plane, beads (n, 3) int of the drawn (y, x, radius))."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(100, 5, (OOC_SIDE, OOC_SIDE)).astype(np.uint16)
+    beads = []
+    for ti in range(OOC_SIDE // TILE):
+        for tj in range(OOC_SIDE // TILE):
+            for r in range(10):
+                for c in range(11):
+                    y, x = ti * TILE + r * 97 + 60, tj * TILE + c * 83 + 50
+                    beads.append((y, x, 8 + (3 * r + c + ti + tj) % 5))
+    for y, x, rad in beads:
+        pts = filled_circle_points(rad) + np.array([y, x])
+        img[pts[:, 0], pts[:, 1]] = 1000
+    return img, np.array(beads)
+
+
+def write_ooc_stack(root: pathlib.Path) -> float:
+    """Write the out-of-core stack under ``root``; returns the seconds the
+    writes took (the planes are made before the clock starts)."""
+    from magnify_tpu_torch.io.tiff import write_tiff
+
+    base = ooc_base()[0].astype(np.float32)
+    stack = np.empty((OOC_TIMES, 1, OOC_SIDE, OOC_SIDE), np.uint16)
+    for t in range(OOC_TIMES):
+        stack[t, 0] = base * np.float32(1 + 0.05 * t)
+    seconds = 0.0
+    for name in OOC_CHANNELS:
+        path = root / "ooc" / name / "s.ome.tif"
+        path.parent.mkdir(parents=True)
+        t0 = time.perf_counter()
+        write_tiff(path, stack)
+        seconds += time.perf_counter() - t0
+    return seconds
+
+
+class _RssSampler:
+    """VmRSS of this process sampled every ``interval`` s on a thread, with
+    the peak of each named stage (as ``scripts/measure_out_of_core.py``
+    samples it)."""
+
+    def __init__(self, interval: float = 0.02):
+        import threading
+
+        self.stage, self.interval = "setup", interval
+        self.peaks: dict = {}
+        self.ends: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.mark()
+            self._stop.wait(self.interval)
+
+    def enter(self, stage: str):
+        """Close the current stage with a sample and start ``stage``."""
+        self.mark()
+        self.ends[self.stage] = self.rss()
+        self.stage = stage
+
+    def mark(self):
+        v = self.rss()
+        if v > self.peaks.get(self.stage, 0):
+            self.peaks[self.stage] = v
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.enter("done")
+        return False
+
+
+def out_of_core_child(root: pathlib.Path) -> int:
+    """``--out-of-core ROOT``: the out-of-core path alone, in a process of
+    its own so that its peak RSS is its own (:func:`run_out_of_core` on the
+    card). Prints one line ``OOC_RESULT {json}``."""
+    import torch
+
+    from magnify_tpu_torch import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --out-of-core: no CUDA device", file=sys.stderr)
+        return 2
+    import magnify_tpu_torch as mt
+
+    dev = torch.device("cuda")
+    _build.load()
+    # Warm the process before its baseline is read: one in-memory beads()
+    # on the base plane loads the CUDA kernels the detection uses at this
+    # plane size (their images count in RSS, once).
+    mt.beads(mt.DataArray(ooc_base()[0], dims=("y", "x")), device=dev,
+             **OOC_KW)
+    print("OOC_RESULT " + json.dumps(run_out_of_core(root, dev)), flush=True)
+    return 0
+
+
+def run_out_of_core(root: pathlib.Path, dev) -> dict:
+    """``beads`` -> ``quantify`` -> ``save`` -> ``load`` on
+    ``ROOT/ooc/(channel)/s.ome.tif`` on ``dev``, with the kernels' launch
+    counts zeroed before ``beads`` and read after it, VmRSS sampled against
+    the warm baseline (taken once the caller has loaded what it needs; the
+    peak of each stage, ``beads`` split at its ROI pass, and the RSS at each
+    stage's end), and the pages the TIFF reader decoded counted. Returns
+    what it measured."""
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch import native
+    from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.core.lazy import is_memmap_backed
+    from magnify_tpu_torch.io import tiff
+
+    if not native.available():
+        raise AssertionError(f"native IO library did not build: "
+                             f"{native.build_error}")
+    pattern = str(root / OOC_PATTERN)
+    by_path: dict = {}
+    seconds = {}
+    tiff.page_reads.clear()
+    def roi_pass(real):
+        def call(*args, **kw):
+            rss.enter("beads: ROI pass")
+            seconds["beads: search planes"] = time.perf_counter() - t0
+            return real(*args, **kw)
+        return call
+
+    with _RssSampler() as rss:
+        baseline = rss.rss()
+        rss.enter("beads: search planes")
+        t0 = time.perf_counter()
+        with _Launches(by_path, "beads OOC"), spy(
+                find.BeadFinder, "_finish_streamed", roi_pass):
+            xp = mt.beads(pattern, device=dev, **OOC_KW)
+        seconds["beads"] = time.perf_counter() - t0
+        seconds["beads: ROI pass"] = (seconds["beads"]
+                                      - seconds["beads: search planes"])
+        reads = dict(tiff.page_reads)
+        rss.enter("quantify")
+        t0 = time.perf_counter()
+        xp = mt.quantify(xp, device=dev)
+        seconds["quantify"] = time.perf_counter() - t0
+        rss.enter("save")
+        out = root / "ooc.npz"
+        t0 = time.perf_counter()
+        mt.save(out, xp.drop_vars("image"))
+        seconds["save"] = time.perf_counter() - t0
+        rss.enter("load")
+        t0 = time.perf_counter()
+        back = mt.load(out)
+        seconds["load"] = time.perf_counter() - t0
+    if not is_memmap_backed(xp["roi"].data):
+        raise AssertionError("out-of-core ROI store is not disk-backed")
+    inten = xp.intensity.transpose("mark", "channel", "time").values
+    for name in ("x", "y", "intensity", "fg", "bg"):
+        if not np.array_equal(np.asarray(back[name].values),
+                              np.asarray(xp[name].values)):
+            raise AssertionError(f"ooc: loaded {name} != saved {name}")
+    if digest(back["roi"].values) != digest(xp["roi"].values):
+        raise AssertionError("ooc: loaded roi != saved roi")
+    # Every crop of the store against the plane it was cut from.
+    roi = xp["roi"].transpose("mark", "channel", "time", "roi_y",
+                              "roi_x").values
+    length = roi.shape[-1]
+    tops = np.clip(np.asarray(xp.y.values)[:, 0].astype(int) - length // 2,
+                   0, OOC_SIDE - length)
+    lefts = np.clip(np.asarray(xp.x.values)[:, 0].astype(int) - length // 2,
+                    0, OOC_SIDE - length)
+    base = ooc_base()[0].astype(np.float32)
+    for t in range(OOC_TIMES):
+        plane = (base * np.float32(1 + 0.05 * t)).astype(np.uint16)
+        crops = np.stack([plane[a:a + length, b:b + length]
+                          for a, b in zip(tops, lefts)])
+        for ci in range(len(OOC_CHANNELS)):
+            if not np.array_equal(roi[:, ci, t], crops):
+                raise AssertionError(f"ooc: ROI crops of channel {ci}, time "
+                                     f"{t} differ from the plane")
+    counts = sorted(set(reads.values()))
+    return {
+        "n_marks": int(xp.sizes["mark"]), "roi_shape": list(xp.roi.shape),
+        "seconds": seconds, "rss_baseline_bytes": baseline,
+        "rss_peak_growth_bytes": {k: v - baseline
+                                  for k, v in rss.peaks.items()
+                                  if k != "setup"},
+        "rss_end_growth_bytes": {k: v - baseline
+                                 for k, v in rss.ends.items()
+                                 if k != "setup"},
+        "page_reads": sum(reads.values()),
+        "page_reads_by_count": {str(k): sum(1 for v in reads.values()
+                                            if v == k) for k in counts},
+        "pages_read_twice": sorted(f"{pathlib.Path(p).parent.name}:{t}"
+                                   for (p, t), v in reads.items() if v == 2),
+        "launches": by_path["beads OOC"],
+        "intensity_rises": bool((np.diff(inten, axis=-1) > 0).all()),
+        "intensity_min": float(inten.min()),
+    }
+
+
+def _same_dataset(what: str, got, want) -> None:
+    """Every variable of ``got`` equals ``want``'s: names, dims, values."""
+    if sorted(got.variables) != sorted(want.variables):
+        raise AssertionError(f"{what}: variables {sorted(got.variables)} != "
+                             f"{sorted(want.variables)}")
+    for name in want.variables:
+        g, w = got[name], want[name]
+        gv, wv = np.asarray(g.values), np.asarray(w.values)
+        if g.dims != w.dims or gv.dtype != wv.dtype or not np.array_equal(
+                gv, wv):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def disk_paths(mt, dev, golden, by_path: dict, in_memory: dict,
+               ms_memory: dict, tmp: pathlib.Path) -> dict:
+    """Frames B and C read from TIFF files, each against its in-memory
+    run, and a flat field given as a TIFF path; then the out-of-core stack
+    in a child process. Returns what the child measured."""
+    from magnify_tpu_torch import native
+    from magnify_tpu_torch.io.tiff import write_tiff
+
+    # --- frame B as a 2 x 2 grid of tile files per channel ----------------
+    tiles = frame_b()
+    for ci, ch in enumerate(("red", "green")):
+        for r in range(2):
+            for c in range(2):
+                path = tmp / "b" / ch / f"tile_{r}_{c}.tif"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                write_tiff(path, tiles[ci, r, c], ome=False)
+    path_b = str(tmp / "b" / "(channel)" / "tile_(row)_(col).tif")
+    with _Launches(by_path, "beads B from files"):
+        xf = mt.beads(path_b, device=dev, **FRAME_B_KW)
+    if not native.available():
+        raise AssertionError(f"native IO library did not build: "
+                             f"{native.build_error}")
+    names = list(np.asarray(xf.channel.values))
+    if sorted(names) != ["green", "red"]:
+        raise AssertionError(f"frame B from files: channels {names}")
+    # The reader orders channel directories by name; the in-memory frame
+    # lists red first.
+    xf = xf.isel(channel=[names.index("red"), names.index("green")])
+    _check_case("B", xf, golden)
+    _same_dataset("frame B from files", xf, in_memory["B"])
+    img_f = mt.image(path_b, overlap=OVERLAP_B, device=dev)
+    img_m = mt.image(as_dataarray(mt, "B"), overlap=OVERLAP_B, device=dev)
+    img_f = img_f.isel(channel=[names.index("red"), names.index("green")])
+    _same_dataset("image() of frame B from files", img_f, img_m)
+    ms_b = _time_ms(lambda: mt.beads(path_b, device=dev, **FRAME_B_KW), 3)
+    _say(f"frame B from 8 tile files: beads() and image() equal the "
+         f"in-memory runs (and the golden file); warm beads() {ms_b:.3f} ms "
+         f"per frame (median of 3) vs {ms_memory['B']:.3f} ms in memory")
+
+    # --- a flat field as a TIFF path ----------------------------------------
+    yy, xx = np.mgrid[0:TILE, 0:TILE]
+    flat = (1.0 + 0.3 * np.exp(-((yy - 512) ** 2 + (xx - 512) ** 2) / 2e5)
+            ).astype(np.float32)
+    write_tiff(tmp / "flat.tif", flat)
+    data_a = as_dataarray(mt, "A")
+    xa_path = mt.beads(data_a, flatfield=str(tmp / "flat.tif"), device=dev,
+                       **FRAME_A_KW)
+    xa_arr = mt.beads(data_a, flatfield=flat, device=dev, **FRAME_A_KW)
+    _same_dataset("frame A with a flat field from a TIFF path", xa_path,
+                  xa_arr)
+    _say(f"frame A with a flat field from a TIFF path equals the same array "
+         f"({xa_path.sizes['mark']} marks)")
+
+    # --- frame C as one 2-page TIFF -----------------------------------------
+    write_tiff(tmp / "c.tif", frame_c()[0], axes="TYX", ome=False)
+
+    def run_c():
+        return mt.microfluidic_chip(str(tmp / "c.tif"),
+                                    pinlist=frame_c_pinlist(), device=dev,
+                                    **FRAME_C_KW)
+
+    with _Launches(by_path, "chip_c from a TIFF"):
+        xc = run_c()
+    _same_dataset("frame C from a TIFF", xc, in_memory["C"])
+    ms_c = _time_ms(run_c, 2)
+    _say(f"frame C from a 2-page TIFF: every variable equals the in-memory "
+         f"run; warm microfluidic_chip() {ms_c:.3f} ms (median of 2) vs "
+         f"{ms_memory['C']:.3f} ms in memory")
+
+    return out_of_core_phase(mt, dev, by_path, tmp)
+
+
+def out_of_core_phase(mt, dev, by_path: dict, tmp: pathlib.Path) -> dict:
+    """Write the out-of-core stack under ``tmp``, run
+    :func:`out_of_core_child` on it in a child process, record its kernel
+    launches as the path "beads OOC" and check what it measured."""
+    write_s = write_ooc_stack(tmp)
+    stack_bytes = len(OOC_CHANNELS) * OOC_TIMES * OOC_SIDE * OOC_SIDE * 2
+    _say(f"out-of-core stack written: {len(OOC_CHANNELS)} x {OOC_TIMES} x "
+         f"{OOC_SIDE}^2 uint16, {stack_bytes} bytes in {write_s:.3f} s "
+         f"({stack_bytes / write_s / 1e9:.3f} GB/s)")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(pathlib.Path(__file__)
+                                                .resolve()),
+                            "--out-of-core", str(tmp)],
+                           capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    for line in child.stdout.splitlines():
+        if not line.startswith("OOC_RESULT "):
+            _say("  [out-of-core child]", line)
+    if child.returncode != 0:
+        raise AssertionError(f"out-of-core child exited "
+                             f"{child.returncode}:\n{child.stderr[-4000:]}")
+    res = json.loads(next(line for line in child.stdout.splitlines()
+                          if line.startswith("OOC_RESULT "))[11:])
+    res.update(write_seconds=write_s, child_seconds=child_s,
+               stack_bytes=stack_bytes)
+    by_path["beads OOC"] = res["launches"]
+    by_path.setdefault("_batched", {})["beads OOC"] = {
+        f"{k}_batched": 0 for k in res["launches"]}
+    check_out_of_core(mt, dev, tmp, res)
+    return res
+
+
+def check_out_of_core(mt, dev, tmp: pathlib.Path, res: dict) -> None:
+    """What :func:`run_out_of_core` measured against what it must be: each
+    page decoded once by the ROI pass and each search page once more, every
+    intensity rising with t, peak RSS growth under half the stack, and the
+    marks those of the search planes run in memory, every drawn bead
+    among them."""
+    _say("out-of-core result: " + json.dumps(res))
+    stack_bytes = res["stack_bytes"]
+    want_reads = len(OOC_CHANNELS) * OOC_TIMES + len(OOC_CHANNELS)
+    if (res["page_reads"] != want_reads
+            or res["page_reads_by_count"] != {
+                "1": len(OOC_CHANNELS) * (OOC_TIMES - 1),
+                "2": len(OOC_CHANNELS)}
+            or res["pages_read_twice"] != sorted(f"{c}:0"
+                                                 for c in OOC_CHANNELS)):
+        raise AssertionError(f"ooc: {res['page_reads']} page reads "
+                             f"{res['page_reads_by_count']}, want "
+                             f"{want_reads}: each page once, and each "
+                             "search page (t = 0) once more")
+    if not res["intensity_rises"]:
+        raise AssertionError("ooc: an intensity does not rise with t")
+    growth = max(res["rss_peak_growth_bytes"].values())
+    if growth >= stack_bytes / 2:
+        raise AssertionError(f"ooc: peak RSS grew {growth} bytes, over half "
+                             f"the stack's {stack_bytes}")
+    # The marks against the same search planes run in memory.
+    back = mt.load(tmp / "ooc.npz")
+    base, drawn = ooc_base()
+    planes = mt.DataArray(np.stack([base] * len(OOC_CHANNELS)),
+                          dims=("channel", "y", "x"),
+                          coords={"channel": list(OOC_CHANNELS)})
+    mem = mt.beads(planes, device=dev, **OOC_KW)
+    for name in ("x", "y", "fg", "bg"):
+        got = np.asarray(back[name].transpose("mark", "time", ...).values)
+        want = np.asarray(mem[name].values)
+        if not np.array_equal(got[:, 0], want):
+            raise AssertionError(f"ooc: {name} differs from the search "
+                                 "planes run in memory")
+    yx = np.stack([np.asarray(mem.y.values), np.asarray(mem.x.values)], 1)
+    d = np.abs(yx[:, None, :] - drawn[None, :, :2]).max(-1)
+    found = int((d.min(axis=0) <= 1).sum())
+    _say(f"out-of-core: {res['n_marks']} marks equal the search planes run "
+         f"in memory; {found}/{len(drawn)} drawn beads within 1 px; "
+         f"peak RSS growth {growth} bytes ({growth / stack_bytes:.4f} of the "
+         f"stack); page reads {res['page_reads']}; beads "
+         f"{res['seconds']['beads']:.3f} s, quantify "
+         f"{res['seconds']['quantify']:.3f} s, save "
+         f"{res['seconds']['save']:.3f} s, load {res['seconds']['load']:.3f}"
+         f" s")
+    if found != len(drawn) or res["n_marks"] != len(drawn):
+        raise AssertionError(f"ooc: {res['n_marks']} marks, {found} of "
+                             f"{len(drawn)} drawn beads found")
+
+
 def main(argv) -> int:
     import torch
 
+    if "--out-of-core" in argv:
+        return out_of_core_child(
+            pathlib.Path(argv[argv.index("--out-of-core") + 1]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2

@@ -1,5 +1,5 @@
 """Components registered on import: the pipeline stages of the bead and
-chip paths."""
+chip paths and ``quantify``."""
 
 from magnify_tpu_torch.components import (  # noqa: F401
     filter,
@@ -7,5 +7,6 @@ from magnify_tpu_torch.components import (  # noqa: F401
     identify,
     postprocess,
     preprocess,
+    quantify,
     stitch,
 )

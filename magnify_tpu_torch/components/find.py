@@ -18,8 +18,16 @@ through :func:`magnify_tpu_torch.ops.detect.detect_ransac` (the JAX
 package's unfused ``BeadFinder.__call__``: ``num_iter`` threefry proposals
 from seed 0, the exact perimeter scorer) and the channels are deduped on
 the host by KD-tree; the masks and crops are the same host code. The
-interactive UI raises, and a lazy stack is read into memory whole (the
-out-of-core path is not ported yet; ROADMAP, queue 1).
+interactive UI raises.
+
+A stack larger than :data:`MAX_RESIDENT_BYTES` is processed out of core,
+as the JAX package's unfused ``BeadFinder.__call__`` does it: each search
+plane (t = 0) is read alone, normalized to uint8 on the host and detected
+on the device, the channels are deduped on the host by KD-tree, and
+:meth:`BeadFinder._finish_streamed` fills a disk-backed ROI store one
+(channel, time) plane at a time with the next plane read ahead. Peak host
+memory is then a few planes, whatever the stack's size. The marks are
+those of the in-memory path.
 
 :meth:`BeadFinder.stream` runs the same three phases for a sequence of
 frames with consecutive frames overlapped: a producer thread does the host
@@ -53,6 +61,7 @@ import collections
 import concurrent.futures
 import contextlib
 import math
+import os
 import threading
 import time
 import warnings
@@ -70,8 +79,14 @@ from magnify_tpu_torch.ops import geom as ops_geom
 from magnify_tpu_torch.ops import gridfit, prng
 from magnify_tpu_torch.parallel.streaming import PinnedUploader
 
-__all__ = ["BeadFinder", "ButtonFinder", "chip_fused", "cluster_1d",
-           "label_clusters", "last_chip_timings", "regress_clusters"]
+__all__ = ["BeadFinder", "ButtonFinder", "MAX_RESIDENT_BYTES", "chip_fused",
+           "cluster_1d", "label_clusters", "last_chip_timings",
+           "regress_clusters"]
+
+#: Bead stacks above this many bytes are processed out of core (per-plane
+#: host reads, ROI crops streamed into a disk-backed store) instead of being
+#: read into memory whole. Module-level, so tests can lower it.
+MAX_RESIDENT_BYTES = 512 * 1024 * 1024
 
 #: What the last chip timestep spent where (seconds, host clock). Dense:
 #: ``upload_bytes``, ``upload_precision``, ``normalize_upload_s`` (host
@@ -119,6 +134,21 @@ def _channel_values(assay):
 
 def _channel_index(assay, channel):
     return _channel_values(assay).index(channel)
+
+
+def _stack_bytes(assay) -> int:
+    var = assay["image"]
+    return int(np.prod(var.shape)) * np.dtype(var.dtype).itemsize
+
+
+def _dedupe_host(beads, found, dedupe_dist):
+    """The JAX package's unfused cross-channel dedupe: drop a ``found``
+    circle within ``dedupe_dist`` of an earlier channel's kept circle."""
+    if len(beads) > 0 and len(found) > 0:
+        tree = scipy.spatial.KDTree(beads[:, :2])
+        neighbors = tree.query_ball_point(found[:, :2], dedupe_dist)
+        found = found[~np.array([len(nb) > 0 for nb in neighbors])]
+    return np.concatenate([beads, found])
 
 
 def _cross_channel_dedupe(blocks, dedupe_dist):
@@ -240,26 +270,127 @@ class BeadFinder:
         self.device = torch.device(device)
 
     def __call__(self, assay):
+        if _stack_bytes(assay) > MAX_RESIDENT_BYTES:
+            return self._out_of_core(assay)
         image_np, planes = self._host_planes(assay)
         beads = self.detect(planes)
         return self._assemble(assay, image_np, beads)
 
+    def _search_idxs(self, assay) -> list:
+        search_channels = self.search_channels or _channel_values(assay)
+        return [_channel_index(assay, c) if not isinstance(c, int) else c
+                for c in search_channels]
+
     def _host_planes(self, assay):
         """Host phase of one frame: the image stack in memory and its uint8
         search planes (S, H, W) at t = 0."""
-        search_channels = self.search_channels or _channel_values(assay)
-        search_idxs = [
-            _channel_index(assay, c) if not isinstance(c, int) else c
-            for c in search_channels
-        ]
         image_np = np.ascontiguousarray(assay.image.to_numpy())
-        planes = ops_detect.normalize_planes_u8(image_np[search_idxs, 0])
+        planes = ops_detect.normalize_planes_u8(
+            image_np[self._search_idxs(assay), 0])
         return image_np, planes
+
+    def _out_of_core(self, assay):
+        """A stack above :data:`MAX_RESIDENT_BYTES`: each search plane read
+        and detected alone (the JAX package's
+        ``magnify_tpu/components/find.py:767-801``), then the ROI store
+        streamed by :meth:`_finish_streamed`."""
+        beads = np.empty((0, 3))
+        for ci in self._search_idxs(assay):
+            plane = assay.image.isel(time=0, channel=ci).to_numpy()
+            found = self.detect(ops_detect.normalize_planes_u8(plane[None]))
+            beads = _dedupe_host(beads, found.astype(float),
+                                 2 * self.min_bead_radius)
+        return self._finish_streamed(assay, beads)
+
+    def _finish_streamed(self, assay, beads):
+        """Output allocation, ownership masks and ROI crops of an
+        out-of-core stack: the crops stream in one (channel, time) plane at
+        a time, the next plane read on a thread meanwhile, so peak host
+        memory stays at a few planes whatever the stack's size.
+
+        A disk-backed ROI store (``alloc_output`` makes one above
+        ``core.lazy.RESIDENT_BYTES_LIMIT``) is filled through its file, one
+        ``pwrite`` a crop, not through its mapping: a mapping's touched
+        pages count in RSS until evicted, and one plane's crops touch the
+        whole store, which spans every mark (the JAX package writes
+        through the mapping and evicts it every 32 planes). The mapping
+        sees the writes: it is the same file."""
+        num_beads = len(beads)
+        sizes = assay.sizes
+        n_ch, n_t = sizes["channel"], sizes["time"]
+        L = self.roi_length
+
+        roi = alloc_output("roi", (num_beads, n_ch, n_t, L, L),
+                           assay["image"].dtype)
+        fg = alloc_output("fg", (num_beads, n_t, L, L), bool)
+        bg = alloc_output("bg", (num_beads, n_t, L, L), bool)
+        assay["roi"] = Variable(("mark", "channel", "time", "roi_y", "roi_x"),
+                                roi)
+        assay = assay.assign_coords(
+            fg=(("mark", "time", "roi_y", "roi_x"), fg),
+            bg=(("mark", "time", "roi_y", "roi_x"), bg),
+            x=(("mark", "time"), np.repeat(beads[:, 1:2], n_t, axis=1)),
+            y=(("mark", "time"), np.repeat(beads[:, 0:1], n_t, axis=1)),
+            valid=(("mark", "time"), np.ones((num_beads, n_t), bool)),
+        )
+        if num_beads == 0:
+            return assay
+
+        ints = np.round(beads).astype(np.int32)
+        fg1, bg1, tops, lefts = _bead_ownership_host(
+            ints, sizes["im_y"], sizes["im_x"], L, self.max_bead_radius)
+        fg[:] = fg1[:, None]
+        bg[:] = bg1[:, None]
+
+        planes = [(ci, t) for ci in range(n_ch) for t in range(n_t)]
+
+        def read(idx):
+            ci, t = idx
+            return assay.image.isel(channel=ci, time=t).to_numpy()
+
+        with contextlib.ExitStack() as stack:
+            ex = stack.enter_context(
+                concurrent.futures.ThreadPoolExecutor(max_workers=1))
+            write = self._crop_writer(roi, stack)
+            pending = ex.submit(read, planes[0])
+            for k, (ci, t) in enumerate(planes):
+                plane = pending.result()
+                if k + 1 < len(planes):
+                    pending = ex.submit(read, planes[k + 1])
+                for i in range(num_beads):
+                    write(i, ci, t, plane[tops[i]:tops[i] + L,
+                                          lefts[i]:lefts[i] + L])
+        assay.cache(["roi", "fg", "bg"])
+        return assay
+
+    @staticmethod
+    def _crop_writer(roi, stack):
+        """``write(i, ci, t, crop)`` into ``roi`` (mark, channel, time, L,
+        L): an assignment for an array in memory, a ``pwrite`` into the
+        file of a C-ordered memmap (the file is closed with ``stack``)."""
+        if not isinstance(roi, np.memmap):
+            def assign(i, ci, t, crop):
+                roi[i, ci, t] = crop
+            return assign
+        fd = os.open(roi.filename, os.O_WRONLY)
+        stack.callback(os.close, fd)
+        dtype = roi.dtype
+        crop_bytes = roi.shape[-2] * roi.shape[-1] * dtype.itemsize
+        n_ch, n_t = roi.shape[1:3]
+
+        def pwrite(i, ci, t, crop):
+            at = roi.offset + ((i * n_ch + ci) * n_t + t) * crop_bytes
+            os.pwrite(fd, np.ascontiguousarray(crop, dtype=dtype).data, at)
+        return pwrite
 
     def _prepare_frame(self, assay, uploader):
         """Producer-thread half of one streamed frame: materialize the
         image, normalize the search planes on the host and start their
-        asynchronous upload. Returns (assay, image_np, planes_dev, event)."""
+        asynchronous upload. Returns (assay, image_np, planes_dev, event),
+        or (assay, None, None, None) for a stack above
+        :data:`MAX_RESIDENT_BYTES`, which runs out of core."""
+        if _stack_bytes(assay) > MAX_RESIDENT_BYTES:
+            return (assay, None, None, None)
         image_np, planes = self._host_planes(assay)
         return (assay, image_np) + uploader.upload(planes)
 
@@ -288,8 +419,7 @@ class BeadFinder:
 
     def _detect_ransac(self, planes_dev: torch.Tensor) -> np.ndarray:
         """RANSAC per search channel, then the JAX package's unfused
-        cross-channel dedupe on the host: a circle within ``2 *
-        min_bead_radius`` of an earlier channel's kept circle drops."""
+        cross-channel dedupe on the host (:func:`_dedupe_host`)."""
         beads = np.empty((0, 3))
         for plane in planes_dev:
             circles, _scores, _n = ops_detect.detect_ransac(
@@ -300,13 +430,8 @@ class BeadFinder:
                 max_radius=self.max_bead_radius,
                 min_dist=self.min_bead_radius,
                 key=prng.prng_key(0, plane.device), normalized=True)
-            found = circles.cpu().numpy().astype(float)
-            if len(beads) > 0 and len(found) > 0:
-                tree = scipy.spatial.KDTree(beads[:, :2])
-                neighbors = tree.query_ball_point(found[:, :2],
-                                                  2 * self.min_bead_radius)
-                found = found[~np.array([len(nb) > 0 for nb in neighbors])]
-            beads = np.concatenate([beads, found])
+            beads = _dedupe_host(beads, circles.cpu().numpy().astype(float),
+                                 2 * self.min_bead_radius)
         return np.round(beads).astype(np.int32).reshape(-1, 3)
 
     def _assemble(self, assay, image_np, beads_i):
@@ -357,6 +482,11 @@ class BeadFinder:
         * frame k's masks, ROI crops and ``post`` components run on one
           worker thread (with a CUDA stream of its own on a card), while
           the calling thread already detects frame k+1.
+
+        A frame above :data:`MAX_RESIDENT_BYTES` is not read ahead: the
+        frames before it are finished and yielded, then it runs the
+        single-frame (out-of-core) path on the calling thread, as the JAX
+        package's stream runs it.
 
         The detector waits for the device inside each frame (its survivor
         compaction and every NMS round read a count back), so there is no
@@ -438,6 +568,14 @@ class BeadFinder:
                 if item is done:
                     break
                 assay, image_np, planes_dev, event = item
+                if planes_dev is None:
+                    while pending:
+                        yield pending.popleft().result()
+                    out = self(assay)
+                    for _name, comp in post:
+                        out = comp(out)
+                    yield out
+                    continue
                 beads_i = self.detect_planes(
                     uploader.receive(planes_dev, event))
                 pending.append(

@@ -4,13 +4,15 @@ rotation.
 Host numpy code copied from ``magnify_tpu.components.preprocess``:
 ``standardize_format`` and ``flatfield_correct`` with scalar or array
 fields; ``rotate`` resamples every plane on a device
-(:func:`magnify_tpu_torch.ops.geom.rotate_plane`). Path fields and
-``basic_correct`` are not ported yet (ROADMAP, queue 1).
+(:func:`magnify_tpu_torch.ops.geom.rotate_plane`). Flat and dark fields
+may be scalars, arrays, TIFF paths or store directories.
+``basic_correct`` is not ported yet (ROADMAP, queue 1).
 """
 
 from __future__ import annotations
 
 import os
+import pathlib
 
 import numpy as np
 
@@ -83,13 +85,20 @@ def rotate(xp, rotation=0, device="cuda"):
     return xp
 
 
-def _load_field(value):
-    """A scalar or array correction field; paths wait for the io port."""
+def _load_field(value, group):
+    """Resolve a scalar, array, TIFF path or store directory into an array
+    or a scalar. A store directory holds the field as its variable
+    ``group`` ("flatfield" or "darkfield"), in a subdirectory ``group`` or
+    at its root."""
     if isinstance(value, os.PathLike | str):
-        raise NotImplementedError(
-            "flat/dark fields given as paths need the io port (ROADMAP "
-            "queue 1: io); pass a scalar or an array"
-        )
+        path = pathlib.Path(value).expanduser()
+        if path.is_dir():
+            from magnify_tpu_torch.io.zarrlite import open_store
+
+            return open_store(path, group=group)[group]
+        from magnify_tpu_torch.io.tiff import read_tiff
+
+        return read_tiff(path)
     return value
 
 
@@ -97,12 +106,12 @@ def _load_field(value):
 def flatfield_correct(xp, flatfield=1.0, darkfield=0.0):
     """Illumination correction: ``clip(tile - darkfield) / flatfield``,
     rescaled to preserve the maximum and cast back to the input dtype
-    (reference preprocess.py:62-88). Scalar or array corrections are
-    accepted (paths wait for the io port); lazy tiles stay lazy (two chunk
+    (reference preprocess.py:62-88). Scalar, array, TIFF-path or
+    store-dir corrections are accepted; lazy tiles stay lazy (two chunk
     passes: one reduction for the rescale factors, one deferred map).
     """
-    flatfield = _load_field(flatfield)
-    darkfield = _load_field(darkfield)
+    flatfield = _load_field(flatfield, "flatfield")
+    darkfield = _load_field(darkfield, "darkfield")
     if isinstance(flatfield, DataArray):
         flatfield = flatfield.values
     if isinstance(darkfield, DataArray):

@@ -1,6 +1,6 @@
 """User-facing pipeline factories: ``beads``, ``mrbles``,
-``microfluidic_chip``, their ``*_pipe`` forms and the ``*_stream``
-generators of the bead pipelines.
+``microfluidic_chip``, ``image``, their ``*_pipe`` forms and the
+``*_stream`` generators of the bead pipelines.
 
 The same parameters and defaults as ``magnify_tpu.registry``'s, plus
 ``device`` (default ``"cuda"``): the device the detector and the decoder run
@@ -10,10 +10,16 @@ on. The CPU runs the kernels' plain twins; a device that is missing raises.
 from __future__ import annotations
 
 from magnify_tpu_torch.core.pipeline import Pipeline
+from magnify_tpu_torch.core.registry import (  # noqa: F401
+    component,
+    components,
+    readers,
+)
 
 __all__ = ["CHIP_PRESETS", "beads", "beads_pipe", "beads_stream",
+           "component", "components", "image", "image_pipe",
            "microfluidic_chip", "microfluidic_chip_pipe", "mrbles",
-           "mrbles_pipe", "mrbles_stream"]
+           "mrbles_pipe", "mrbles_stream", "readers"]
 
 # Chip-type presets: (row, column) pitch in pixels.
 CHIP_PRESETS = {
@@ -523,3 +529,31 @@ def _stream_from_pipe(pipe, frames, depth, pull_batch):
         depth=depth,
         pull_batch=pull_batch,
     )
+
+
+def image_pipe(
+    overlap: int = 102,
+    rotation: float = 0,
+    roi_only: bool = False,
+    drop_tiles: bool = True,
+    device="cuda",
+) -> Pipeline:
+    """Build the plain image-standardization pipeline (magnify
+    registry.py:672-693): read -> standardize_format -> stitch -> rotate ->
+    drop -> restore_format. ``rotate`` runs on ``device`` (a non-zero
+    ``rotation`` only)."""
+    pipe = Pipeline("read")
+    pipe.add_pipe("standardize_format")
+    pipe.add_pipe("stitch", overlap=overlap)
+    pipe.add_pipe("rotate", rotation=rotation, device=device)
+    pipe.add_pipe("drop", roi_only=roi_only, drop_tiles=drop_tiles)
+    pipe.add_pipe("restore_format")
+    return pipe
+
+
+def image(data, overlap: int = 102, rotation: float = 0,
+          roi_only: bool = False, drop_tiles: bool = True, device="cuda"):
+    """Read and standardize images, stitching included (magnify
+    registry.py:615-669)."""
+    return image_pipe(overlap=overlap, rotation=rotation, roi_only=roi_only,
+                      drop_tiles=drop_tiles, device=device)(data=data)

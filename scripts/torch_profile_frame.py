@@ -29,10 +29,17 @@ frames A (1024^2) and B (1844^2 stitched plane, 1892^2 padded features):
    chamber batch) and inside them the edge stack with the gradient angles,
    the sampler (threefry streams, gathers, circumcircles), the unique-triple
    dedupe, the perimeter scorer and the NMS, per input shape, with the
-   number of unique proposals.
+   number of unique proposals;
+4. stacks read from disk: ``beads`` on frame B read from its 8 tile files,
+   ``microfluidic_chip`` on frame C read from one 2-page TIFF (2 warm calls
+   each), and the out-of-core stack of ``chip_smoke.py`` (4 channels x 20
+   timesteps of 4096^2 uint16 OME-TIFF pages, 2.68 GB, written to a
+   temporary directory first): ``beads`` and then ``quantify`` on it, one
+   warm call each (the pages come from the page cache: the stack was just
+   written).
 
-It prints the card's name and power limit first. It exits 2 without a
-CUDA device.
+``--disk-only`` runs part 4 alone. It prints the card's name and power
+limit first. It exits 2 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -171,7 +179,46 @@ def ransac_stages(label, run, reps=3) -> None:
           f"{n_unique // reps}", flush=True)
 
 
-def main() -> int:
+def disk_profile(dev) -> None:
+    """Part 4: frames B and C read from TIFF files, and the out-of-core
+    stack."""
+    import chip_smoke as cs
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.io.tiff import write_tiff
+
+    with tempfile.TemporaryDirectory(prefix="profile_disk_") as tmp:
+        tmp = pathlib.Path(tmp)
+        tiles = cs.frame_b()
+        for ci, ch in enumerate(("red", "green")):
+            for r in range(2):
+                for c in range(2):
+                    path = tmp / "b" / ch / f"tile_{r}_{c}.tif"
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    write_tiff(path, tiles[ci, r, c], ome=False)
+        path_b = str(tmp / "b" / "(channel)" / "tile_(row)_(col).tif")
+        frame_profile("beads frame B from 8 tile files",
+                      lambda: mt.beads(path_b, device=dev,
+                                       **cs.FRAME_B_KW), reps=2)
+        write_tiff(tmp / "c.tif", cs.frame_c()[0], axes="TYX", ome=False)
+        frame_profile("microfluidic_chip frame C from a 2-page TIFF",
+                      lambda: mt.microfluidic_chip(
+                          str(tmp / "c.tif"), pinlist=cs.frame_c_pinlist(),
+                          device=dev, **cs.FRAME_C_KW), reps=2)
+        t0 = time.perf_counter()
+        seconds = cs.write_ooc_stack(tmp)
+        print(f"out-of-core stack written in {seconds:.3f} s of writes "
+              f"({time.perf_counter() - t0:.3f} s with making the planes)",
+              flush=True)
+        pattern = str(tmp / cs.OOC_PATTERN)
+        frame_profile("beads out-of-core 4 x 20 x 4096^2 from disk",
+                      lambda: mt.beads(pattern, device=dev, **cs.OOC_KW),
+                      reps=1)
+        xp = mt.beads(pattern, device=dev, **cs.OOC_KW)
+        frame_profile("quantify out-of-core (memmap ROI store)",
+                      lambda: mt.quantify(xp, device=dev), reps=1)
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -180,6 +227,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if "--disk-only" in argv:
+        disk_profile(torch.device("cuda"))
+        return 0
 
     import chip_smoke as cs
     import magnify_tpu_torch as mt
@@ -246,8 +296,9 @@ def main() -> int:
                   lambda: mt.microfluidic_chip(
                       data_c, pinlist=cs.frame_c_pinlist(), **ransac,
                       **cs.FRAME_C_KW), reps=2)
+    disk_profile(dev)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

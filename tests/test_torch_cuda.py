@@ -572,3 +572,39 @@ def test_device_prefetcher_on_the_card(cuda):
     for k, t in got:
         assert t.device.type == "cuda"
         assert torch.equal(t.cpu(), torch.from_numpy(blocks[k]))
+
+
+def test_out_of_core_beads_and_quantify_on_the_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """The out-of-core path of tests/test_torch_out_of_core.py (both
+    limits lowered: the stack stays on disk, the ROI store is a memmap) on
+    the card equals the CPU: marks, masks, crops, and the intensities,
+    which both reduce on the host from the memmap. ``quantify`` of the same
+    crops held in memory reduces on the card, within ``MEAN_RTOL`` of the
+    pixel magnitude."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    import test_torch_out_of_core as ooc
+
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.core import lazy
+
+    monkeypatch.setattr(find, "MAX_RESIDENT_BYTES", 1)
+    monkeypatch.setattr(lazy, "RESIDENT_BYTES_LIMIT", 1)
+    pattern = ooc.write_stack(str(tmp_path))
+    out = {}
+    for dev in (cuda, "cpu"):
+        before = thyst.launches
+        xp = mt.beads(pattern, device=dev, **ooc.KW)
+        assert (thyst.launches > before) == (dev == cuda)
+        out[str(dev)] = mt.quantify(xp, device=dev)
+    for name in ("x", "y", "fg", "bg", "roi", "valid", "intensity"):
+        np.testing.assert_array_equal(np.asarray(out["cuda"][name].values),
+                                      np.asarray(out["cpu"][name].values),
+                                      err_msg=name)
+    ram = out["cpu"].copy()
+    ram["roi"] = (ram["roi"].dims, np.array(ram["roi"].values))
+    on_card = mt.quantify(ram, device=cuda).intensity.values
+    magnitude = float(np.abs(ram["roi"].values).max())
+    assert np.abs(on_card - out["cpu"].intensity.values).max() <= (
+        treduce.MEAN_RTOL * magnitude)

@@ -43,6 +43,9 @@ torch.set_num_threads(1)
 
 
 def test_import_loads_neither_jax_nor_magnify_tpu():
+    """Neither the package nor any of its modules loads jax, magnify_tpu,
+    pandas, or the optional io packages (bs4, h5py, PIL, zstandard): those
+    load only where a file needs them."""
     code = ("import sys, magnify_tpu_torch, chip_smoke\n"
             "import magnify_tpu_torch.components.identify\n"
             "import magnify_tpu_torch.ops.reduce\n"
@@ -52,9 +55,19 @@ def test_import_loads_neither_jax_nor_magnify_tpu():
             "import magnify_tpu_torch.diagnostics\n"
             "import magnify_tpu_torch.ops.prng\n"
             "import magnify_tpu_torch.ops.ransac\n"
+            "import magnify_tpu_torch.native\n"
+            "import magnify_tpu_torch.io.tiff\n"
+            "import magnify_tpu_torch.io.reader\n"
+            "import magnify_tpu_torch.io.zarrlite\n"
+            "import magnify_tpu_torch.io.netcdf\n"
+            "import magnify_tpu_torch.io.file\n"
+            "import magnify_tpu_torch.accessor\n"
+            "import magnify_tpu_torch.components.quantify\n"
+            "import magnify_tpu_torch.components.preprocess\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu',\n"
-            "                                    'pandas'))\n"
+            "                                    'pandas', 'bs4', 'h5py',\n"
+            "                                    'PIL', 'zstandard'))\n"
             "assert not bad, bad\n"
             "for name in ('mrbles', 'mrbles_pipe', 'beads_stream',\n"
             "             'mrbles_stream', 'parallel', 'microfluidic_chip',\n"
@@ -62,6 +75,20 @@ def test_import_loads_neither_jax_nor_magnify_tpu():
             "    assert name in magnify_tpu_torch.__all__, name\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_public_names_are_the_jax_packages():
+    """``__all__`` holds every name of the JAX package's, each bound: the
+    io entry points (``image``, ``image_pipe``, ``save``, ``load``,
+    ``quantify``) and the ``io`` and ``accessor`` modules included."""
+    import magnify_tpu as mg
+
+    assert set(mg.__all__) <= set(mt.__all__)
+    for name in mt.__all__:
+        assert getattr(mt, name) is not None, name
+    for name in ("image", "image_pipe", "save", "load", "quantify"):
+        assert callable(getattr(mt, name)), name
+    assert mt.accessor.cache is not None and mt.io.reader.Reader is not None
 
 
 @pytest.mark.parametrize("four_connected", [False, True])
@@ -124,12 +151,15 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 
 def test_unported_options_raise():
+    """The tuning UI is not ported and raises. Paths (inputs and flat
+    fields) are read now: a path that names no file raises as the JAX
+    package's reader does."""
     img = mt.DataArray(np.zeros((64, 64), np.uint16), dims=("y", "x"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mt.beads(img, interactive=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         mt.beads("some/path/*.tif", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         mt.beads(img, flatfield="flat.tif", device="cpu")
 
 

@@ -184,8 +184,9 @@ def test_stream_producer_exception_reaches_the_consumer():
             outs.append(out)
     # The frames before the failure were delivered, in order.
     assert [o.roi.sizes["mark"] for o in outs] == [2, 0]
-    # The reader runs on the producer thread too: an input it refuses.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The reader runs on the producer thread too: an input it refuses (a
+    # path pattern that names no file).
+    with pytest.raises(FileNotFoundError, match="did not lead to any"):
         list(mt.beads_stream([blank_frame(), "frames/*.tif"], **KW))
 
 
