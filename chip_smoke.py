@@ -11,12 +11,13 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    time;
 2. kernel phase: holds each kernel against its plain torch twin on the card,
    bit for bit: hysteresis on the Canny masks of frame A (1024^2), of
-   frame B's stitched plane (1844^2) and of the out-of-core stack's base
-   plane (4096^2, 1,760 beads), on random masks at 2048^2 and 4096^2,
+   frame B's stitched plane (1844^2), of the out-of-core stack's base
+   plane (4096^2, 1,760 beads) and of frame S's stitched plane (3688^2),
+   on random masks at 2048^2 and 4096^2,
    with strong pixels outside the weak mask, and on a serpentine chain
    across many small tiles; the int8 ring correlation on the padded
-   features of frames A and B and of the out-of-core plane (8 x 1072^2,
-   8 x 1892^2, 8 x 4144^2; radii 8-12); the
+   features of frames A and B, of the out-of-core plane and of frame S's
+   plane (8 x 1072^2, 8 x 1892^2, 8 x 4144^2, 8 x 3736^2; radii 8-12); the
    RANSAC perimeter scorer on every input the RANSAC main paths give it,
    taken from one ``detector="ransac"`` run of each at 5,000,000 proposals:
    frame A's unique proposals (radii 8-12, L = 68 perimeter positions), and
@@ -77,6 +78,26 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
      button within 1 px, the warm wall time, the unique proposals and the
      peak device memory); ms per frame beside the dense detector's on the
      same frame;
+   * the same RANSAC paths but the stream with the conv scorer
+     (``MAGNIFY_TPU_SCORER=conv`` for the phase: each proposal's score read
+     out of the int8 score maps, which hysteresis and the ring correlation
+     make; the perimeter scorer launches 0 times): frame A 110/110 and C8
+     64/64 equal to the golden file's ``RAconv``/``RC8conv``, frame C every
+     button within 1 px; ms per frame beside the perimeter scorer's;
+   * the ops layer: ``ops.find_circles`` on frame A's plane (dense, RANSAC
+     with each scorer, 5,000,000 proposals) equal on ``cuda`` and ``cpu``
+     (circles and scores); ``ops.find_circles_stack`` over 8 planes of
+     frame A (seeds 0-7, ``batch=4``: two uploads, one call of each kernel
+     a plane), each plane equal to its ``find_circles`` call;
+   * frame S (2 channels x 4 x 4 tiles of 1024^2, overlap 102, stitched to
+     3,688^2; 256 beads under a vignette and a dark-field gradient) through
+     ``beads_pipe`` with ``basic_correct`` after ``standardize_format``:
+     each channel's BaSiC fields fitted on the card within 1e-4 (flat) and
+     1e-5 x the mean (dark) of the CPU's, every drawn bead found within
+     1 px and no other mark, the marks within 1 px of the golden file's
+     ``S_rows`` (the JAX package's); prints the fit's time per channel on
+     the card and on the CPU and ``diagnostics.stage_report()`` of one warm
+     frame (frame A's warm loop prints one too);
    * stacks read from disk (in a temporary directory, deleted at the end):
      ``beads`` and ``image`` on frame B written as
      ``b/(channel)/tile_(row)_(col).tif`` (8 files) must equal the
@@ -105,7 +126,8 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    ``ms``/``plain_ms``/``bound_ms``/``bound_share``/``library_ms`` at frame
    A's shapes and the same keys with ``_frame_b`` at frame B's,
    ``bound_by``, ``max_abs_err``, for hysteresis and ring_corr also with
-   ``_ooc`` at the out-of-core plane; the batched entries have the same keys
+   ``_ooc`` at the out-of-core plane and ``_frame_s`` at frame S's stitched
+   plane; the batched entries have the same keys
    with ``_rois_c8`` and ``_rois_c``; perimeter_score's record has them for
    each of its inputs above (``profiler_ms`` beside ``ms``; ``bound_share``
    over ``profiler_ms`` and ``bound_share_events`` over ``ms``; the lanes a
@@ -119,7 +141,7 @@ Without a CUDA device it exits 2 at once. ``--kernels-only`` stops after
 phase 2. ``--out-of-core DIR`` is the child of the out-of-core phase.
 
 The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`,
-:func:`frame_c8`, :func:`frame_c`) need
+:func:`frame_c8`, :func:`frame_c`, :func:`frame_s`) need
 numpy and the port's copy of the library rasterizer only, so the golden-file
 script imports them from here.
 """
@@ -131,6 +153,7 @@ import functools
 import hashlib
 import io
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -348,9 +371,89 @@ def frame_c_pinlist() -> io.StringIO:
     return io.StringIO("\n".join(lines) + "\n")
 
 
+# Frame S: a 4 x 4 scan of 1024^2 tiles under a vignette and a dark-field
+# gradient, for ``basic_correct``.
+S_GRID = 4
+S_CHANNELS = ["a", "b"]
+# min_roundness 0.45: on the 13.6 M pixels of the stitched plane the
+# background noise alone forms circles of radius 8 that score up to 0.37
+# (five of them above 0.3), while every bead scores above 0.57.
+FRAME_S_KW = dict(min_bead_diameter=16, max_bead_diameter=24,
+                  overlap=OVERLAP_B, min_roundness=0.45, search_channel="a")
+
+
+@functools.lru_cache(maxsize=1)
+def s_shading():
+    """Frame S's flat field (a vignette from 1 in the centre to 0.6 in the
+    corners) and dark field (a gradient from 100 to 300 counts), each
+    (TILE, TILE) float64."""
+    yy, xx = np.mgrid[0:TILE, 0:TILE]
+    rr = ((yy - (TILE - 1) / 2) ** 2 + (xx - (TILE - 1) / 2) ** 2) / (
+        2 * ((TILE - 1) / 2) ** 2)
+    return 1.0 - 0.4 * rr, 100.0 + 100.0 * (yy + xx) / (TILE - 1)
+
+
+def frame_s(seed: int = 6, one_level: bool = False, per_side: int = S_GRID):
+    """The scan frame: (channel 2, row 4, col 4, y, x) uint16 tiles of
+    1024^2 that overlap by ``OVERLAP_B`` (stitched to 3,688^2).
+
+    Every tile holds ``per_side`` x ``per_side`` beads (16 by default) of
+    radius 8-11 on a jittered grid inside the part that stitching keeps,
+    drawn from a seed of its own, at the same spots in both channels
+    (+1,500 counts in "a", +1,000 in "b") over a background level of its
+    own and Gaussian noise (sd 5). The levels of a channel's 16 tiles are
+    100, 160, ..., 1,000 counts in an order drawn from the seed: the
+    per-image baseline of BaSiC's model, which the fit needs to vary (with
+    ``one_level`` every tile is at 550 and its dark field is not
+    identifiable). Each tile is then shaded by :func:`s_shading`'s flat
+    field and offset by its dark field. Returns (tiles, beads (n, 3) int of
+    the drawn (y, x, radius) in the stitched image)."""
+    step = TILE - OVERLAP_B
+    clip = OVERLAP_B // 2
+    flat, dark = s_shading()
+    out = np.empty((len(S_CHANNELS), S_GRID, S_GRID, TILE, TILE), np.uint16)
+    beads = []
+    pitch = step // per_side
+    levels = [np.full(S_GRID * S_GRID, 550.0) if one_level else
+              100.0 + 60.0 * np.random.default_rng([seed, ci]).permutation(
+                  S_GRID * S_GRID) for ci in range(len(S_CHANNELS))]
+    for tr in range(S_GRID):
+        for tc in range(S_GRID):
+            rng = np.random.default_rng([seed, tr, tc])
+            spots = [(clip + a * pitch + int(rng.integers(15, pitch - 15)),
+                      clip + b * pitch + int(rng.integers(15, pitch - 15)),
+                      int(rng.integers(8, 12)))
+                     for a in range(per_side) for b in range(per_side)]
+            beads += [(y - clip + tr * step, x - clip + tc * step, r)
+                      for y, x, r in spots]
+            for ci, bead in enumerate((1500.0, 1000.0)):
+                img = levels[ci][tr * S_GRID + tc] + rng.normal(
+                    0, 5, (TILE, TILE))
+                for y, x, r in spots:
+                    p = filled_circle_points(r) + np.array([y, x])
+                    img[p[:, 0], p[:, 1]] += bead
+                out[ci, tr, tc] = np.clip(np.round(img * flat + dark), 0,
+                                          65535)
+    return out, np.array(beads)
+
+
+def frame_s_pipe(pkg, **kw):
+    """``beads_pipe`` of package ``pkg`` for frame S with ``basic_correct``
+    after ``standardize_format``; ``kw`` goes to ``beads_pipe``, and its
+    ``device`` to ``basic_correct`` too."""
+    pipe = pkg.beads_pipe(**FRAME_S_KW, **kw)
+    pipe.add_pipe("basic_correct", after="standardize_format",
+                  **{k: v for k, v in kw.items() if k == "device"})
+    return pipe
+
+
 def as_dataarray(pkg, case: str, seed=None):
-    """Frame ``case`` ("A", "B", "M", "C8", "C8V" or "C") as a DataArray of
-    package ``pkg``."""
+    """Frame ``case`` ("A", "B", "M", "C8", "C8V", "C" or "S") as a
+    DataArray of package ``pkg``."""
+    if case == "S":
+        return pkg.DataArray(frame_s()[0],
+                             dims=("channel", "row", "col", "y", "x"),
+                             coords={"channel": S_CHANNELS})
     if case == "C8":
         return pkg.DataArray(frame_c8(), dims=("y", "x"))
     if case == "C8V":
@@ -529,6 +632,16 @@ def _frame_b_plane() -> np.ndarray:
         n * th, m * tw)
 
 
+def _frame_s_plane() -> np.ndarray:
+    """Channel "a" of frame S stitched (3,688^2 uint16), as the stitch
+    component joins it: the shape the main path's detector sees (after
+    ``basic_correct``, which changes values, not shape)."""
+    clip = OVERLAP_B // 2
+    tiles = frame_s()[0][0, :, :, clip:TILE - clip, clip:TILE - clip]
+    return np.ascontiguousarray(tiles.transpose(0, 2, 1, 3)).reshape(
+        S_GRID * (TILE - OVERLAP_B), S_GRID * (TILE - OVERLAP_B))
+
+
 def _serpentine(h: int, w: int):
     """A single chain that snakes down the plane in runs 4 rows apart."""
     chain = np.zeros((h, w), bool)
@@ -548,11 +661,13 @@ def _hysteresis_record(dev, planes, rois) -> dict:
 
     from magnify_tpu_torch.ops import hysteresis as hyst
 
-    (strong_a, weak_a), (strong_b, weak_b), (strong_o, weak_o) = planes
+    ((strong_a, weak_a), (strong_b, weak_b), (strong_o, weak_o),
+     (strong_s, weak_s)) = planes
     rng = np.random.default_rng(7)
     cases = [("frame A masks", strong_a, weak_a, None),
              ("frame B masks", strong_b, weak_b, None),
-             ("out-of-core plane masks", strong_o, weak_o, None)]
+             ("out-of-core plane masks", strong_o, weak_o, None),
+             ("frame S stitched plane masks", strong_s, weak_s, None)]
     for n in (2048, 4096):
         s = rng.random((n, n)) > 0.99
         w = s | (rng.random((n, n)) > 0.65)
@@ -619,7 +734,7 @@ def _hysteresis_record(dev, planes, rois) -> dict:
            "replaces": "magnify_tpu/ops/pallas_kernels.py:131",
            "launches_per_call": hyst.LAUNCHES_PER_CALL, "max_abs_err": 0}
     timed = [("", strong_a, weak_a), ("_frame_b", strong_b, weak_b),
-             ("_ooc", strong_o, weak_o)]
+             ("_ooc", strong_o, weak_o), ("_frame_s", strong_s, weak_s)]
     timed += [(f"_rois_{tag.lower()}", s, w) for tag, (s, w) in rois.items()]
     for tag, s, w in timed:
         k_ms = _event_ms(lambda: hyst.hysteresis(s, w), 100)
@@ -634,7 +749,7 @@ def _hysteresis_record(dev, planes, rois) -> dict:
     # The whole-plane and tiled forms of the TPU kernel are one kernel
     # here; the random 2048^2 and 4096^2 masks time it past the whole-plane
     # form's size.
-    for name, s, w, _ in cases[3:5]:
+    for name, s, w, _ in cases[4:6]:
         kn = _event_ms(lambda: hyst.hysteresis(s, w), 20)
         pn = _event_once_ms(lambda: hyst.hysteresis_plain(s, w))
         bn, _by = _bound(3 * s.numel(), 0)
@@ -658,7 +773,9 @@ def _ring_corr_record(dev, feats_ab, roi_feats) -> dict:
     # (key suffix, name, features, weights, plain twin timed with a warm-up)
     cases = [("", "frame A", feats_ab[0], (8, 12), True),
              ("_frame_b", "frame B", feats_ab[1], (8, 12), True),
-             ("_ooc", "the out-of-core plane", feats_ab[2], (8, 12), False)]
+             ("_ooc", "the out-of-core plane", feats_ab[2], (8, 12), False),
+             ("_frame_s", "frame S's stitched plane", feats_ab[3], (8, 12),
+              False)]
     for tag, (feats, radii) in roi_feats.items():
         cases.append((f"_rois_{tag.lower()}", f"ROI crops of frame {tag}",
                       feats, radii, feats.shape[0] <= 64))
@@ -984,6 +1101,7 @@ def kernel_phase(dev) -> list:
     strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
     strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
     strong_o, weak_o, feats_o = _stages(ooc_base()[0], dev)
+    strong_s, weak_s, feats_s = _stages(_frame_s_plane(), dev)
     # The chamber crops the chip path refines: around the drawn centers, at
     # the default ROI length 72 and each frame's radii.
     c8_centers = np.array([[(i + 1) * 100, (j + 1) * 100]
@@ -994,9 +1112,9 @@ def kernel_phase(dev) -> list:
     sc, wc, fc = _roi_stages(stack_c[0], centers_c.reshape(-1, 2), 72, 4, 15,
                              dev)
     return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b),
-                                     (strong_o, weak_o)),
+                                     (strong_o, weak_o), (strong_s, weak_s)),
                                {"C8": (s8, w8), "C": (sc, wc)}),
-            _ring_corr_record(dev, (feats_a, feats_b, feats_o),
+            _ring_corr_record(dev, (feats_a, feats_b, feats_o, feats_s),
                               {"C8": (f8, (8, 16)), "C": (fc, (4, 15))}),
             _perimeter_record(dev)]
 
@@ -1051,6 +1169,7 @@ def _assert_same_frame(what: str, out, ref) -> None:
 
 DENSE = ("hysteresis", "ring_corr")
 RANSAC = ("hysteresis", "perimeter_score")
+CONV = ("hysteresis", "ring_corr")  # RANSAC with the conv scorer
 
 
 class _Launches:
@@ -1111,6 +1230,7 @@ def _mrbles(mt, data, dev, decode_device=None):
 
 def main_path(records: list, dev) -> None:
     import magnify_tpu_torch as mt
+    from magnify_tpu_torch import diagnostics
     from magnify_tpu_torch.components import identify
 
     golden = np.load(GOLDEN)
@@ -1132,8 +1252,11 @@ def main_path(records: list, dev) -> None:
     _say(f"frame B: roi {xb['roi'].shape}")
     _check_case("B", xb, golden)
 
+    diagnostics.reset_stages()
     ms_a = _time_ms(lambda: mt.beads(data_a, device=dev, **FRAME_A_KW), 5)
-    _say(f"frame A warm beads(): {ms_a:.3f} ms per frame (median of 5)")
+    _say(f"frame A warm beads(): {ms_a:.3f} ms per frame (median of 5); "
+         f"stage_report() over the warm-up and the 5 timed frames "
+         f"{json.dumps(diagnostics.stage_report())}")
     ms_b = _time_ms(lambda: mt.beads(data_b, device=dev, **FRAME_B_KW), 3)
     _say(f"frame B warm beads(): {ms_b:.3f} ms per frame (median of 3)")
 
@@ -1219,7 +1342,10 @@ def main_path(records: list, dev) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         disk_paths(mt, dev, golden, by_path, results,
                    {"B": ms_b, "C": chip_ms["C"]}, pathlib.Path(tmp))
-    ransac_paths(mt, dev, golden, by_path, dict(chip_ms, A=ms_a))
+    gather_ms = ransac_paths(mt, dev, golden, by_path, dict(chip_ms, A=ms_a))
+    ransac_paths(mt, dev, golden, by_path, gather_ms, scorer="conv")
+    ops_phase(mt, dev, by_path)
+    basic_phase(mt, dev, golden, by_path)
 
     batched_by_path = by_path.pop("_batched")
     for rec in list(records):
@@ -1238,7 +1364,8 @@ def main_path(records: list, dev) -> None:
                     if counts[name]}
         if not launches or set(launches) - {
                 "chip_c8", "chip_c8_2ch2t", "chip_c", "chip_c from a TIFF",
-                "chip_c8 ransac", "chip_c ransac"}:
+                "chip_c8 ransac", "chip_c ransac", "chip_c8 ransac conv",
+                "chip_c ransac conv"}:
             raise AssertionError(f"{name}: launched in {sorted(launches)}")
         brec = {k: rec[k] for k in ("route", "source", "replaces",
                                     "launches_per_call", "max_abs_err",
@@ -1359,98 +1486,281 @@ def _check_frame_c(what: str, xc) -> None:
         raise AssertionError(f"{what}: fg masks do not match the buttons")
 
 
-def ransac_paths(mt, dev, golden, by_path: dict, dense_ms: dict) -> None:
+@contextlib.contextmanager
+def _scorer(mode: str):
+    """``MAGNIFY_TPU_SCORER`` set to ``mode`` for a block, restored after."""
+    saved = os.environ.get("MAGNIFY_TPU_SCORER")
+    os.environ["MAGNIFY_TPU_SCORER"] = mode
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["MAGNIFY_TPU_SCORER"]
+        else:
+            os.environ["MAGNIFY_TPU_SCORER"] = saved
+
+
+def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
+                 scorer: str = "gather") -> dict:
     """The main paths with ``detector="ransac"`` at the default
-    ``num_iter``: beads on frame A and its stream, the chip on frames C8
-    and C."""
+    ``num_iter``, with ``scorer`` ("gather": the perimeter scorer, or
+    "conv": the int8 score maps read at each proposal): beads on frame A,
+    with the gather scorer also its stream, and the chip on frames C8 and
+    C. Prints each frame's warm ms beside ``ref_ms`` (the dense detector's
+    for "gather", the gather scorer's for "conv"). Returns the warm ms of
+    frames A, C8 and C."""
     import torch
 
     from magnify_tpu_torch.components import find
     from magnify_tpu_torch.ops import hysteresis as hyst
 
+    conv = scorer == "conv"
+    tag = " conv" if conv else ""
+    golden_tag = "conv" if conv else ""
+    ref_name = "the gather scorer" if conv else "dense"
+    kernels = CONV if conv else RANSAC
+    hyst_call = hyst.LAUNCHES_PER_CALL
+
+    def launches(calls: int, scorer_launches: int) -> dict:
+        """One search channel: ``calls`` edge stacks (a whole plane, then
+        for a chip ONE batch for all crops), each scored by one ring
+        correlation (conv); or the perimeter scorer's launches (gather:
+        for a chip the crops' proposals and their hill-climb)."""
+        return {"hysteresis": calls * hyst_call,
+                "ring_corr": calls if conv else 0,
+                "perimeter_score": 0 if conv else scorer_launches}
+
     kw = dict(detector="ransac", device=dev)
-    data_a = as_dataarray(mt, "A")
-    with _Launches(by_path, "beads A ransac", RANSAC):
-        xa = mt.beads(data_a, **kw, **FRAME_A_KW)
-    # One search channel: one edge stack, one scorer launch.
-    want = {"hysteresis": hyst.LAUNCHES_PER_CALL, "ring_corr": 0,
-            "perimeter_score": 1}
-    if by_path["beads A ransac"] != want:
-        raise AssertionError(f"beads A ransac launches "
-                             f"{by_path['beads A ransac']} != {want}")
-    n_true, n_a = frame_a()[1], xa["roi"].sizes["mark"]
-    _say(f"frame A, RANSAC: found {n_a}/{n_true} beads, roi "
-         f"{xa['roi'].shape}")
-    if n_a != n_true:
-        raise AssertionError(f"frame A, RANSAC: found {n_a} of {n_true}")
-    _check_case("RA", xa, golden)
-    ms_a = _time_ms(lambda: mt.beads(data_a, **kw, **FRAME_A_KW), 3)
-    _say(f"frame A warm beads(detector='ransac'): {ms_a:.3f} ms per frame "
-         f"(median of 3) vs dense {dense_ms['A']:.3f} ms")
+    out_ms = {}
+    with _scorer(scorer):
+        data_a = as_dataarray(mt, "A")
+        path = f"beads A ransac{tag}"
+        with _Launches(by_path, path, kernels):
+            xa = mt.beads(data_a, **kw, **FRAME_A_KW)
+        if by_path[path] != launches(1, 1):
+            raise AssertionError(f"{path} launches {by_path[path]} != "
+                                 f"{launches(1, 1)}")
+        n_true, n_a = frame_a()[1], xa["roi"].sizes["mark"]
+        _say(f"frame A, RANSAC ({scorer}): found {n_a}/{n_true} beads, roi "
+             f"{xa['roi'].shape}")
+        if n_a != n_true:
+            raise AssertionError(f"frame A, RANSAC ({scorer}): found {n_a} "
+                                 f"of {n_true}")
+        _check_case(f"RA{golden_tag}", xa, golden)
+        out_ms["A"] = _time_ms(lambda: mt.beads(data_a, **kw, **FRAME_A_KW),
+                               3)
+        _say(f"frame A warm beads(detector='ransac', {scorer} scorer): "
+             f"{out_ms['A']:.3f} ms per frame (median of 3) vs "
+             f"{ref_name} {ref_ms['A']:.3f} ms")
 
-    n_stream = 3
-    path = f"beads_stream {n_stream} x A ransac"
-    with _Launches(by_path, path, RANSAC):
-        outs = list(mt.beads_stream([data_a] * n_stream, **kw,
-                                    **FRAME_A_KW))
-    if len(outs) != n_stream:
-        raise AssertionError(f"beads_stream (ransac) yielded {len(outs)}")
-    for k, out in enumerate(outs):
-        _assert_same_frame(f"beads_stream (ransac) frame {k}", out, xa)
-    want = {k: n_stream * v for k, v in by_path["beads A ransac"].items()}
+        if not conv:
+            n_stream = 3
+            path = f"beads_stream {n_stream} x A ransac"
+            with _Launches(by_path, path, kernels):
+                outs = list(mt.beads_stream([data_a] * n_stream, **kw,
+                                            **FRAME_A_KW))
+            if len(outs) != n_stream:
+                raise AssertionError(f"beads_stream (ransac) yielded "
+                                     f"{len(outs)}")
+            for k, out in enumerate(outs):
+                _assert_same_frame(f"beads_stream (ransac) frame {k}", out,
+                                   xa)
+            want = {k: n_stream * v
+                    for k, v in by_path["beads A ransac"].items()}
+            if by_path[path] != want:
+                raise AssertionError(f"{path} launches != {want}")
+            _say(f"beads_stream (ransac): {n_stream} frames equal the "
+                 "single-frame call, run serially")
+
+        data_c8 = as_dataarray(mt, "C8")
+        path = f"chip_c8 ransac{tag}"
+        want = launches(2, 3)
+        with _Launches(by_path, path, kernels):
+            xc = mt.microfluidic_chip(data_c8, **kw, **FRAME_C8_KW)
+        if by_path[path] != want:
+            raise AssertionError(f"{path} launches {by_path[path]} != "
+                                 f"{want}")
+        yx = summarize(xc)["rows"].reshape(-1, *C8_GRID, 2)[0]
+        truth = np.array([[((i + 1) * 100, (j + 1) * 100)
+                           for j in range(C8_GRID[1])]
+                          for i in range(C8_GRID[0])], float)
+        n_marks = int(np.prod(C8_GRID))
+        found = int((np.abs(yx - truth).max(axis=-1) <= 1).sum())
+        _say(f"frame C8, RANSAC ({scorer}): found {found}/{n_marks} buttons "
+             f"within 1 px, roi {xc['roi'].shape}; unique proposals "
+             f"{find.last_chip_timings.get('n_unique')}")
+        if found != n_marks:
+            raise AssertionError(f"frame C8, RANSAC ({scorer}): "
+                                 f"{found}/{n_marks} buttons")
+        _check_case(f"RC8{golden_tag}", xc, golden)
+        out_ms["C8"] = _time_ms(lambda: mt.microfluidic_chip(
+            data_c8, **kw, **FRAME_C8_KW), 3)
+        _say(f"frame C8 warm microfluidic_chip(detector='ransac', {scorer} "
+             f"scorer): {out_ms['C8']:.3f} ms (median of 3) vs {ref_name} "
+             f"{ref_ms['C8']:.3f} ms; last_chip_timings "
+             f"{json.dumps(find.last_chip_timings)}")
+
+        data_c = as_dataarray(mt, "C")
+
+        def run_c():
+            return mt.microfluidic_chip(data_c, pinlist=frame_c_pinlist(),
+                                        **kw, **FRAME_C_KW)
+
+        path = f"chip_c ransac{tag}"
+        torch.cuda.reset_peak_memory_stats()
+        with _Launches(by_path, path, kernels):
+            xc = run_c()
+        if by_path[path] != want:
+            raise AssertionError(f"{path} launches {by_path[path]} != "
+                                 f"{want}")
+        peak = torch.cuda.max_memory_allocated()
+        _check_frame_c(f"frame C, RANSAC ({scorer})", xc)
+        out_ms["C"] = _time_ms(run_c, 2)
+        _say(f"frame C warm microfluidic_chip(detector='ransac', {scorer} "
+             f"scorer): {out_ms['C']:.3f} ms (median of 2) vs {ref_name} "
+             f"{ref_ms['C']:.3f} ms; last_chip_timings "
+             f"{json.dumps(find.last_chip_timings)} (n_unique: unique "
+             f"proposals of the whole-plane search); peak device memory "
+             f"allocated {peak / 2**30:.3f} GiB ({peak} bytes)")
+    return out_ms
+
+
+#: find_circles arguments on frame A's plane, as ``beads`` derives them
+#: from FRAME_A_KW: (low_q, high_q, grid_length, num_iter, min_radius,
+#: max_radius, min_roundness, min_dist).
+FIND_ARGS = (0.1, 0.9, 20, 5_000_000, 8, 12, 0.3, 8)
+
+
+def ops_phase(mt, dev, by_path: dict) -> None:
+    """The public ops layer: ``find_circles`` on frame A's plane, dense and
+    RANSAC with each scorer, equal to the port's CPU result (the CPU side
+    run once); ``find_circles_stack`` over 8 planes of frame A (seeds 0-7,
+    ``batch=4``), each equal to its ``find_circles`` call."""
+    img, n_true = frame_a()
+    for path, detector, scorer, kernels in (
+            ("find_circles dense", "dense", "auto", DENSE),
+            ("find_circles ransac", "ransac", "gather", RANSAC),
+            ("find_circles ransac conv", "ransac", "conv", CONV)):
+        with _scorer(scorer):
+            with _Launches(by_path, path, kernels):
+                got = mt.ops.find_circles(img, *FIND_ARGS, detector=detector,
+                                          device=dev)
+            t0 = time.perf_counter()
+            want = mt.ops.find_circles(img, *FIND_ARGS, detector=detector,
+                                       device="cpu")
+            cpu_s = time.perf_counter() - t0
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{path}: cuda differs from cpu")
+            if len(got[0]) != n_true:
+                raise AssertionError(f"{path}: {len(got[0])} circles")
+            ms = _time_ms(lambda: mt.ops.find_circles(
+                img, *FIND_ARGS, detector=detector, device=dev), 3)
+        _say(f"{path}: {len(got[0])} circles, cuda equals cpu row for row "
+             f"(circles and scores); warm {ms:.3f} ms on the card (median "
+             f"of 3), {cpu_s:.3f} s on the CPU")
+
+    planes = np.stack([frame_a(seed)[0] for seed in range(8)])
+    stack_kw = dict(low_edge_quantile=FIND_ARGS[0],
+                    high_edge_quantile=FIND_ARGS[1],
+                    min_radius=FIND_ARGS[4], max_radius=FIND_ARGS[5],
+                    min_roundness=FIND_ARGS[6], min_dist=FIND_ARGS[7],
+                    batch=4, device=dev)
+    path = "find_circles_stack 8 x A"
+    with _Launches(by_path, path):
+        res = mt.ops.find_circles_stack(planes, **stack_kw)
+    from magnify_tpu_torch.ops import hysteresis as hyst
+
+    want = {"hysteresis": len(planes) * hyst.LAUNCHES_PER_CALL,
+            "ring_corr": len(planes), "perimeter_score": 0}
     if by_path[path] != want:
-        raise AssertionError(f"{path} launches != {want}")
-    _say(f"beads_stream (ransac): {n_stream} frames equal the single-frame "
-         "call, run serially")
+        raise AssertionError(f"{path} launches {by_path[path]} != {want}")
+    for k, (c, s) in enumerate(res):
+        one = mt.ops.find_circles(planes[k], *FIND_ARGS, detector="dense",
+                                  device=dev)
+        if not (np.array_equal(c, one[0]) and np.array_equal(s, one[1])):
+            raise AssertionError(f"{path}: plane {k} differs from its "
+                                 "find_circles call")
+    ms_stack = _time_ms(lambda: mt.ops.find_circles_stack(planes, **stack_kw),
+                        3) / len(planes)
+    _say(f"{path}: every plane equals its find_circles call "
+         f"({[len(c) for c, _s in res]} circles); {ms_stack:.3f} ms per "
+         "plane (median of 3)")
 
-    data_c8 = as_dataarray(mt, "C8")
-    with _Launches(by_path, "chip_c8 ransac", RANSAC):
-        xc = mt.microfluidic_chip(data_c8, **kw, **FRAME_C8_KW)
-    # The grid search's detection, then ONE batch for all 64 crops: their
-    # proposals and their hill-climb.
-    want = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 0,
-            "perimeter_score": 3}
-    if by_path["chip_c8 ransac"] != want:
-        raise AssertionError(f"chip_c8 ransac launches "
-                             f"{by_path['chip_c8 ransac']} != {want}")
-    yx = summarize(xc)["rows"].reshape(-1, *C8_GRID, 2)[0]
-    truth = np.array([[((i + 1) * 100, (j + 1) * 100)
-                       for j in range(C8_GRID[1])]
-                      for i in range(C8_GRID[0])], float)
-    n_marks = int(np.prod(C8_GRID))
-    found = int((np.abs(yx - truth).max(axis=-1) <= 1).sum())
-    _say(f"frame C8, RANSAC: found {found}/{n_marks} buttons within 1 px, "
-         f"roi {xc['roi'].shape}; unique proposals "
-         f"{find.last_chip_timings.get('n_unique')}")
-    if found != n_marks:
-        raise AssertionError(f"frame C8, RANSAC: {found}/{n_marks} buttons")
-    _check_case("RC8", xc, golden)
-    ms_c8 = _time_ms(lambda: mt.microfluidic_chip(data_c8, **kw,
-                                                  **FRAME_C8_KW), 3)
-    _say(f"frame C8 warm microfluidic_chip(detector='ransac'): {ms_c8:.3f} "
-         f"ms (median of 3) vs dense {dense_ms['C8']:.3f} ms; "
-         f"last_chip_timings {json.dumps(find.last_chip_timings)}")
 
-    data_c = as_dataarray(mt, "C")
+#: The BaSiC fit's tolerances, the card against the CPU (and the port
+#: against the JAX package): flat field, and dark field over the mean of
+#: the tiles fitted.
+BASIC_FLAT_ATOL = 1e-4
+BASIC_DARK_RTOL = 1e-5
 
-    def run_c():
-        return mt.microfluidic_chip(data_c, pinlist=frame_c_pinlist(), **kw,
-                                    **FRAME_C_KW)
 
-    torch.cuda.reset_peak_memory_stats()
-    with _Launches(by_path, "chip_c ransac", RANSAC):
-        xc = run_c()
-    if by_path["chip_c ransac"] != want:
-        raise AssertionError(f"chip_c ransac launches "
-                             f"{by_path['chip_c ransac']} != {want}")
-    peak = torch.cuda.max_memory_allocated()
-    _check_frame_c("frame C, RANSAC", xc)
-    ms_c = _time_ms(run_c, 2)
-    _say(f"frame C warm microfluidic_chip(detector='ransac'): {ms_c:.3f} ms "
-         f"(median of 2) vs dense {dense_ms['C']:.3f} ms; last_chip_timings "
-         f"{json.dumps(find.last_chip_timings)} (n_unique: unique proposals "
-         f"of the whole-plane search); peak device memory allocated "
-         f"{peak / 2**30:.3f} GiB ({peak} bytes)")
+def basic_phase(mt, dev, golden, by_path: dict) -> None:
+    """Frame S through ``beads_pipe`` with ``basic_correct``: the fitted
+    fields on the card against the CPU's, every drawn bead found within
+    1 px, the marks against the golden file's ``S_rows`` (the JAX package's
+    marks) within 1 px; the fit's time per channel on the card and on the
+    CPU and the stage split of one warm frame."""
+    from magnify_tpu_torch import diagnostics
+    from magnify_tpu_torch.ops import basic
+
+    tiles, beads = frame_s()
+    for ci, ch in enumerate(S_CHANNELS):
+        train = tiles[ci].reshape(-1, TILE, TILE)
+        mean = float(train.astype(np.float32).mean())
+        fields, secs = {}, {}
+        for where, device in (("cuda", dev), ("cpu", "cpu")):
+            basic.fit_basic(train, device=device)  # warm
+            t0 = time.perf_counter()
+            fields[where] = basic.fit_basic(train, device=device)
+            secs[where] = time.perf_counter() - t0
+        d_flat = float(np.abs(fields["cuda"][0] - fields["cpu"][0]).max())
+        d_dark = float(np.abs(fields["cuda"][1] - fields["cpu"][1]).max())
+        _say(f"frame S channel {ch}: fit_basic on 16 x {TILE}^2 tiles "
+             f"{secs['cuda'] * 1e3:.3f} ms on the card, "
+             f"{secs['cpu'] * 1e3:.3f} ms on the CPU; cuda vs cpu flat "
+             f"max |diff| {d_flat:.3e} (bound {BASIC_FLAT_ATOL}), dark "
+             f"{d_dark:.3e} (bound {BASIC_DARK_RTOL} x mean {mean:.1f})")
+        if not (np.isfinite(fields["cuda"][0]).all()
+                and d_flat <= BASIC_FLAT_ATOL
+                and d_dark <= BASIC_DARK_RTOL * mean):
+            raise AssertionError(f"frame S channel {ch}: the card's fields "
+                                 "differ from the CPU's")
+
+    data = as_dataarray(mt, "S")
+    pipe = frame_s_pipe(mt, device=dev)
+    with _Launches(by_path, "beads S basic_correct"):
+        xs = pipe(data=data)
+    yx = np.stack([np.asarray(xs.y.values, float),
+                   np.asarray(xs.x.values, float)], axis=1)
+    d = np.abs(yx[:, None, :] - beads[None, :, :2]).max(-1)
+    found = int((d.min(axis=0) <= 1).sum())
+    side = S_GRID * (TILE - OVERLAP_B)
+    _say(f"frame S: {side}^2 stitched, {len(yx)} marks, {found}/"
+         f"{len(beads)} drawn beads within 1 px, roi {xs['roi'].shape}")
+    if found != len(beads) or len(yx) != len(beads):
+        raise AssertionError(f"frame S: {len(yx)} marks, {found} of "
+                             f"{len(beads)} drawn beads")
+    want = golden["S_rows"]
+    dg = np.abs(yx[:, None, :] - want[None, :, :]).max(-1)
+    if len(want) != len(yx) or dg.min(axis=0).max() > 1 or \
+            dg.min(axis=1).max() > 1:
+        raise AssertionError(f"frame S: marks differ from the golden "
+                             f"{len(want)} by more than 1 px")
+    same = np.array_equal(yx, want)
+    n_moved = int((dg.min(axis=1) > 0).sum())
+    _say(f"frame S: the {len(want)} marks equal the golden file's within "
+         f"1 px ({n_moved} not exactly equal; same order: {same})")
+
+    import torch
+
+    diagnostics.reset_stages()
+    t0 = time.perf_counter()
+    pipe(data=data)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _say(f"frame S warm beads_pipe() with basic_correct: {ms:.3f} ms; "
+         f"stage_report() of that frame "
+         f"{json.dumps(diagnostics.stage_report())}")
 
 
 # The 24-code, 4-lanthanide, 5-channel panel of the decode-scale check.

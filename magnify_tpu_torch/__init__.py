@@ -15,7 +15,11 @@ into a disk-backed store. ``quantify`` reduces the ROI stack to
 per-(mark, channel, time) intensities; ``save``/``load`` write and read
 npz and netCDF. ``beads_stream`` and ``mrbles_stream`` run a sequence of
 frames with the host work, the pinned uploads and the device work of
-consecutive frames overlapped (``parallel``). ``microfluidic_chip`` runs a
+consecutive frames overlapped (``parallel``). ``basic_correct`` fits BaSiC
+flat and dark fields per channel on the device (``ops.basic``);
+``ops.find_circles``/``find_circles_stack`` are the upstream single-image
+contract, and ``diagnostics`` times every pipeline stage and wraps
+``torch.profiler``. ``microfluidic_chip`` runs a
 whole timestep on the device: detection, the grid fit and one batched
 re-detection over every chamber's crop. Three hand-written CUDA kernels
 (``csrc/``) carry the device path: Canny hysteresis, the exact int8 ring
@@ -43,6 +47,7 @@ __all__ = [
     "beads_stream",
     "component",
     "components",
+    "diagnostics",
     "filter",
     "find",
     "identify",
@@ -66,7 +71,14 @@ __all__ = [
     "utils",
 ]
 
-from magnify_tpu_torch import accessor, io, ops, parallel, utils  # noqa: F401
+from magnify_tpu_torch import (  # noqa: F401
+    accessor,
+    diagnostics,
+    io,
+    ops,
+    parallel,
+    utils,
+)
 from magnify_tpu_torch.components import (  # noqa: F401
     filter,
     find,

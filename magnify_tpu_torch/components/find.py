@@ -16,7 +16,8 @@ Marks come out channel-major and, within a channel, best score first — the
 JAX package's order. With ``detector="ransac"`` each search channel goes
 through :func:`magnify_tpu_torch.ops.detect.detect_ransac` (the JAX
 package's unfused ``BeadFinder.__call__``: ``num_iter`` threefry proposals
-from seed 0, the exact perimeter scorer) and the channels are deduped on
+from seed 0, the exact perimeter scorer or, with ``MAGNIFY_TPU_SCORER=conv``,
+the int8 score maps) and the channels are deduped on
 the host by KD-tree; the masks and crops are the same host code. The
 interactive UI raises.
 
@@ -238,7 +239,9 @@ class BeadFinder:
 
     ``detector``: "auto"/"dense" scores every (center, radius) and ignores
     ``num_iter``; "ransac" scores ``num_iter`` Monte-Carlo proposals per
-    search channel with the exact perimeter scorer."""
+    search channel with the exact perimeter scorer (with
+    ``MAGNIFY_TPU_SCORER=conv``, out of the int8 score maps).
+    ``MAGNIFY_TPU_DETECTOR`` overrides ``detector`` at each call."""
 
     def __init__(
         self,
@@ -403,7 +406,7 @@ class BeadFinder:
         """:meth:`detect` on planes that already lie on ``self.device``.
         Launches on the calling thread's current stream and waits for the
         marks."""
-        if self.detector == "ransac":
+        if ops_detect.resolve_detector(self.detector) == "ransac":
             return self._detect_ransac(planes_dev)
         blocks = []
         for plane in planes_dev:
@@ -504,7 +507,7 @@ class BeadFinder:
         if depth < 1 or pull_batch < 1:
             raise ValueError("stream_depth and stream_pull_batch must be "
                              f">= 1 (got {depth}, {pull_batch})")
-        if self.detector == "ransac":
+        if ops_detect.resolve_detector(self.detector) == "ransac":
             yield from self._serial_stream(inputs, reader, pre, post)
             return
         on_card = self.device.type == "cuda"
@@ -787,7 +790,9 @@ class ButtonFinder:
     ``detector``: "auto"/"dense" runs the fused dense timestep and ignores
     ``num_iter``; "ransac" runs :meth:`find_centers` and :meth:`find_rois`
     with ``num_iter`` proposals for the whole plane and ``num_iter //
-    n_chambers`` per chamber, scored by the exact perimeter scorer."""
+    n_chambers`` per chamber, scored by the exact perimeter scorer (with
+    ``MAGNIFY_TPU_SCORER=conv``, out of the int8 score maps).
+    ``MAGNIFY_TPU_DETECTOR`` overrides ``detector`` at each call."""
 
     def __init__(
         self,
@@ -854,7 +859,7 @@ class ButtonFinder:
         search_idxs = [_channel_index(assay, c) for c in search_channels]
         for t in _progress(self.search_timesteps, self.progress_bar):
             images = assay.image.isel(time=t).to_numpy()  # (channel, H, W)
-            if self.detector != "ransac":
+            if ops_detect.resolve_detector(self.detector) != "ransac":
                 (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
                  y[..., t], valid[..., t]) = self._fused_timestep(
                     images, tag, valid[..., t], search_idxs)

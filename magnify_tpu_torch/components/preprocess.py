@@ -1,12 +1,15 @@
-"""Preprocessing components: canonical layout, flat-field correction and
-rotation.
+"""Preprocessing components: canonical layout, labels, illumination
+correction, rotation, flips and masks.
 
-Host numpy code copied from ``magnify_tpu.components.preprocess``:
-``standardize_format`` and ``flatfield_correct`` with scalar or array
-fields; ``rotate`` resamples every plane on a device
-(:func:`magnify_tpu_torch.ops.geom.rotate_plane`). Flat and dark fields
-may be scalars, arrays, TIFF paths or store directories.
-``basic_correct`` is not ported yet (ROADMAP, queue 1).
+The components of ``magnify_tpu.components.preprocess``, under its names:
+``standardize_format``, ``rename_labels``, ``flatfield_correct`` (scalar,
+array, TIFF-path or store-directory fields), ``horizontal_flip``,
+``vertical_flip`` and ``circle_mask`` are host numpy code copied from the
+JAX package; ``rotate`` resamples every plane on a device
+(:func:`magnify_tpu_torch.ops.geom.rotate_plane`), and ``basic_correct``
+fits its BaSiC fields on a device
+(:func:`magnify_tpu_torch.ops.basic.fit_basic`) and applies them on the
+host.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import pathlib
 
 import numpy as np
 
+from magnify_tpu_torch import utils
 from magnify_tpu_torch.core import DataArray, Dataset, Variable
 from magnify_tpu_torch.core.lazy import ChunkedArray
 from magnify_tpu_torch.core.registry import component
@@ -58,6 +62,21 @@ def standardize_format(xp):
     xp["tile"] = tile
 
     return xp.transpose(*STANDARD_DIMS, missing_dims="ignore")
+
+
+@component("rename_labels")
+def rename_labels(xp, **coords):
+    """Reassign coordinate labels by a replacement dict or a full list
+    (reference preprocess.py:44-51)."""
+    for name, new_labels in coords.items():
+        if isinstance(new_labels, dict):
+            vals = np.asarray(
+                [new_labels.get(v, v) for v in xp[name].values.tolist()]
+            )
+            xp = xp.assign_coords({name: ((name,), vals)})
+        else:
+            xp = xp.assign_coords({name: ((name,), np.asarray(new_labels))})
+    return xp
 
 
 @component("rotate")
@@ -182,4 +201,86 @@ def flatfield_correct(xp, flatfield=1.0, darkfield=0.0):
         scale = max_pre / max_post if max_post > 0 else 1.0
         xp["tile"] = Variable(tile_var.dims, (post * scale).astype(dtype),
                               tile_var.attrs)
+    return xp
+
+
+@component("basic_correct")
+def basic_correct(xp, device="cuda"):
+    """Retrospective illumination correction (reference preprocess.py:91-115).
+
+    Per channel, a BaSiC flat field and dark field are fitted on the t = 0
+    tiles on ``device`` (:func:`magnify_tpu_torch.ops.basic.fit_basic`)
+    and applied to every tile of that channel as ``(tile - darkfield) /
+    flatfield`` in float64, clipped at 0 and cast back to the tile dtype.
+    Lazy tiles stay lazy: the correction is a deferred chunk map, and the
+    result is cached as the JAX package caches it. ``basicpy``, which the
+    JAX package prefers when it is installed, is built on JAX and is never
+    used here.
+    """
+    from magnify_tpu_torch.ops.basic import fit_basic
+
+    tile_var = xp["tile"]
+    dtype = tile_var.dtype
+    models = []
+    for ci in range(xp.sizes["channel"]):
+        train = np.asarray(xp.tile.isel(channel=ci, time=0).values)
+        train = train.reshape(-1, train.shape[-2], train.shape[-1])
+        models.append(fit_basic(train, get_darkfield=True,
+                                smoothness_flatfield=1.0, device=device))
+
+    def correct(block, slices):
+        out = np.empty_like(block, dtype=float)
+        for k, ci in enumerate(range(slices[0].start, slices[0].stop)):
+            flat, dark = models[ci]
+            out[k] = (block[k].astype(float) - dark) / flat
+        return np.clip(out, 0, None).astype(dtype)
+
+    data = tile_var.data
+    if isinstance(data, ChunkedArray):
+        xp["tile"] = Variable(
+            tile_var.dims, data.map_chunks(correct, with_slices=True),
+            tile_var.attrs,
+        )
+    else:
+        data = np.asarray(data)
+        out = np.empty_like(data)
+        for ci, (flat, dark) in enumerate(models):
+            out[ci] = np.clip((data[ci].astype(float) - dark) / flat, 0,
+                              None).astype(dtype)
+        xp["tile"] = Variable(tile_var.dims, out, tile_var.attrs)
+    xp.cache("tile")
+    return xp
+
+
+@component("horizontal_flip")
+def horizontal_flip(xp):
+    """Mirror the image (or, before stitching, every tile) left to right."""
+    if "image" in xp:
+        xp["image"] = xp.image.isel(im_x=slice(None, None, -1))
+    else:
+        xp["tile"] = xp.tile.isel(tile_x=slice(None, None, -1))
+    return xp
+
+
+@component("vertical_flip")
+def vertical_flip(xp):
+    """Mirror the image (or, before stitching, every tile) top to bottom."""
+    if "image" in xp:
+        xp["image"] = xp.image.isel(im_y=slice(None, None, -1))
+    else:
+        xp["tile"] = xp.tile.isel(tile_y=slice(None, None, -1))
+    return xp
+
+
+@component("circle_mask")
+def circle_mask(xp, center, diameter, mask_inner=False):
+    """Zero out the pixels outside (or, with ``mask_inner``, inside) a
+    circle (reference preprocess.py:136-153)."""
+    radius = diameter // 2
+    name = "image" if "image" in xp else "tile"
+    shape = xp[name].shape[-2:]
+    mask = utils.circle(shape, center, radius, True)
+    mask = ~mask if mask_inner else mask
+    var = xp[name]
+    xp[name] = Variable(var.dims, var.values * mask, var.variable.attrs)
     return xp

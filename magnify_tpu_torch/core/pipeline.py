@@ -3,7 +3,9 @@
 An ordered list of named ``Dataset -> Dataset`` components folded over each
 assay produced by a reader: insertion by name/index/first/last,
 duplicate-name rejection, removal by name. The same contract as
-``magnify_tpu.core.pipeline`` without its stage-timing hooks.
+``magnify_tpu.core.pipeline``, with the same stage timers: the reader runs
+as the stage ``"read"`` and each component as a stage of its own name
+(:func:`magnify_tpu_torch.diagnostics.stage_timer`).
 """
 
 from __future__ import annotations
@@ -25,10 +27,16 @@ class Pipeline:
         return [name for name, _ in self.components]
 
     def __call__(self, data):
+        from magnify_tpu_torch.diagnostics import stage_timer
+
+        with stage_timer("read"):
+            assays = list(self.reader(data=data))
+
         outputs = []
-        for assay in list(self.reader(data=data)):
-            for _name, comp in self.components:
-                assay = comp(assay)
+        for assay in assays:
+            for name, comp in self.components:
+                with stage_timer(name):
+                    assay = comp(assay)
             outputs.append(assay)
         return outputs[0] if len(outputs) == 1 else outputs
 

@@ -20,10 +20,19 @@ is no cap to grow and the result equals the JAX result at an adequate cap.
 
 The RANSAC detector is the port of ``find_circles``' RANSAC branch
 (``_stage_ransac_packed`` and ``ransac_score_pack``) and of the per-ROI
-``_detect_rois`` with its 3 x 3 x 3 hill-climb. It scores with the exact
-perimeter ("gather") scorer, the one the JAX package runs on every backend
-but the TPU; its proposals come from the JAX package's threefry streams, so
-one seed gives the same circles in both packages.
+``_detect_rois`` with its 3 x 3 x 3 hill-climb. Its proposals come from the
+JAX package's threefry streams, so one seed gives the same circles in both
+packages. It scores them with the exact perimeter ("gather") scorer, the
+one the JAX package runs on every backend but the TPU, or, with
+``MAGNIFY_TPU_SCORER=conv`` (:func:`use_conv_scorer`), by reading each
+circle's score out of the dense detector's int8 score maps (the JAX
+package's TPU scorer).
+
+The public entry points :func:`find_circles` (the upstream magnify
+contract: a host image in, host circles and scores out, best first) and
+:func:`find_circles_stack` (dense, a stack of planes) pick the detector
+with :func:`resolve_detector`, which reads ``MAGNIFY_TPU_DETECTOR`` per
+call as the JAX package does.
 """
 
 from __future__ import annotations
@@ -38,13 +47,14 @@ from magnify_tpu_torch.ops import prng
 from magnify_tpu_torch.ops.edge import edge_pipeline
 from magnify_tpu_torch.ops.nms import parallel_greedy_nms
 from magnify_tpu_torch.ops.ransac import candidate_circles
-from magnify_tpu_torch.ops.score import (dedupe_circles, score_circles,
-                                         score_maps)
+from magnify_tpu_torch.ops.score import (dedupe_circles, gather_map_scores,
+                                         score_circles, score_maps)
 
 __all__ = ["choose_upload_precision", "dense_candidates",
            "detect_best_in_rois", "detect_dense", "detect_ransac",
-           "detect_rois_dense", "detect_rois_ransac", "normalize_planes_u16",
-           "normalize_planes_u8"]
+           "detect_rois_dense", "detect_rois_ransac",
+           "find_circles", "find_circles_stack", "normalize_planes_u16",
+           "normalize_planes_u8", "resolve_detector", "use_conv_scorer"]
 
 #: The JAX package's per-ROI unique cap (``detect_best_in_rois``).
 ROI_UNIQUE_CAP = 4096
@@ -53,6 +63,34 @@ ROI_UNIQUE_CAP = 4096
 _NEIGHBORHOOD = np.array([(dy, dx, dr) for dy in (-1, 0, 1)
                           for dx in (-1, 0, 1) for dr in (-1, 0, 1)],
                          dtype=np.int32)
+
+
+def use_conv_scorer() -> bool:
+    """Whether the RANSAC detector scores its proposals by reading the
+    int8 score maps ("conv") instead of walking each perimeter ("gather").
+
+    ``MAGNIFY_TPU_SCORER=conv|gather|auto``, read per call as the JAX
+    package reads it. "auto" (the default) is the perimeter scorer on every
+    device: the JAX package picks the maps only on a TPU.
+    """
+    mode = os.environ.get("MAGNIFY_TPU_SCORER", "auto")
+    if mode not in ("auto", "conv", "gather"):
+        raise ValueError(f"MAGNIFY_TPU_SCORER must be 'auto', 'conv' or "
+                         f"'gather', got {mode!r}")
+    return mode == "conv"
+
+
+def resolve_detector(detector: str = "auto") -> str:
+    """The detector a call runs: "dense" or "ransac".
+
+    ``MAGNIFY_TPU_DETECTOR``, read per call, overrides the argument, as in
+    the JAX package; an unknown value raises. "auto" is the dense detector
+    on every device (the JAX package takes RANSAC off the TPU).
+    """
+    mode = os.environ.get("MAGNIFY_TPU_DETECTOR", detector or "auto")
+    if mode not in ("auto", "dense", "ransac"):
+        raise ValueError(f"unknown detector {mode!r}")
+    return "dense" if mode == "auto" else mode
 
 
 def normalize_planes_u8(images: np.ndarray) -> np.ndarray:
@@ -135,13 +173,8 @@ def dense_candidates(image_u8: torch.Tensor, low_q: float, high_q: float,
     h, w = image_u8.shape
     edges, dx, dy = edge_pipeline(image_u8, low_q, high_q, normalized)
     pad = 2 * max_radius
-    eg = F.pad(edges, (pad, pad, pad, pad))
-    dxp = F.pad(dx, (pad, pad, pad, pad))
-    dyp = F.pad(dy, (pad, pad, pad, pad))
-    hp, wp = eg.shape
-    maps = score_maps(eg, dxp, dyp, min_radius=min_radius,
-                      max_radius=max_radius)
-
+    maps = _padded_maps(edges, dx, dy, min_radius, max_radius)
+    _n_r, hp, wp = maps.shape
     dev = maps.device
     rads = torch.arange(min_radius, max_radius + 1, device=dev)[:, None]
     rows = torch.arange(hp, device=dev)[None, :] - pad
@@ -197,9 +230,7 @@ def detect_rois_dense(rois: torch.Tensor, low_q: float, high_q: float,
     pad = 2 * max_radius
     edges, dx, dy = edge_pipeline(rois.to(torch.float32), low_q, high_q,
                                   normalized=False)
-    p = (pad, pad, pad, pad)
-    maps = score_maps(F.pad(edges, p), F.pad(dx, p), F.pad(dy, p),
-                      min_radius=min_radius, max_radius=max_radius)
+    maps = _padded_maps(edges, dx, dy, min_radius, max_radius)
     _n, _n_r, hp, wp = maps.shape
     dev = maps.device
     rads = torch.arange(min_radius, max_radius + 1, device=dev)[:, None]
@@ -219,6 +250,14 @@ def detect_rois_dense(rois: torch.Tensor, low_q: float, high_q: float,
     return circles, scores
 
 
+def _padded_maps(edges, dx, dy, min_radius: int, max_radius: int):
+    """The int8 score maps of (H, W) or (N, H, W) edge planes padded by
+    ``2 * max_radius``, as the conv scorer reads them."""
+    p = (2 * max_radius,) * 4
+    return score_maps(F.pad(edges, p), F.pad(dx, p), F.pad(dy, p),
+                      min_radius=min_radius, max_radius=max_radius)
+
+
 def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
                   min_roundness: float, *, grid_length: int, num_iter: int,
                   min_radius: int, max_radius: int, min_dist: int,
@@ -227,13 +266,17 @@ def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
 
     ``normalized`` says whether ``image`` already holds uint8 values (the
     bead path's host-normalized planes; normalizing them again changes
-    nothing) or raw values (the chip's ``find_centers``). Returns the
-    NMS-accepted circles (n, 3) int32, best first, their scores, and the
-    number of unique proposals.
+    nothing) or raw values (the chip's ``find_centers``). The unique
+    proposals are scored by the perimeter scorer, or with
+    :func:`use_conv_scorer` read out of the plane's int8 score maps (no
+    gradient angles are computed then). Returns the NMS-accepted circles
+    (n, 3) int32, best first, their scores, and the number of unique
+    proposals.
     """
     h, w = image.shape
-    edges, _dx, _dy, angles = edge_pipeline(image, low_q, high_q,
-                                            normalized, angles=True)
+    conv = use_conv_scorer()
+    edges, dx, dy, *angles = edge_pipeline(image, low_q, high_q, normalized,
+                                           angles=not conv)
     cands, any_edges = candidate_circles(edges, grid_length, num_iter, key)
     uniq, n_unique = dedupe_circles(
         cands, any_edges, height=h, width=w, min_radius=min_radius,
@@ -241,8 +284,14 @@ def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
     pad = 2 * max_radius
     shift = torch.tensor([pad, pad, 0], dtype=torch.int32,
                          device=uniq.device)
-    scores = score_circles(angles, edges, uniq + shift,
-                           max_radius=max_radius, pad=pad)
+    if conv:
+        maps = _padded_maps(edges, dx, dy, min_radius, max_radius)
+        live = torch.ones(uniq.shape[0], dtype=torch.bool, device=uniq.device)
+        scores = gather_map_scores(maps, uniq + shift, live,
+                                   min_radius=min_radius)
+    else:
+        scores = score_circles(angles[0], edges, uniq + shift,
+                               max_radius=max_radius, pad=pad)
     thresh = torch.tensor(np.float32(min_roundness), device=scores.device)
     lin = torch.nonzero(scores >= thresh).reshape(-1)  # unique-index order
     order = torch.sort(-scores[lin], stable=True).indices
@@ -259,7 +308,9 @@ def detect_rois_ransac(rois: torch.Tensor, low_q: float, high_q: float,
                        grid_length: int, num_iter: int, min_radius: int,
                        max_radius: int, unique_cap: int):
     """The best circle of every ROI by RANSAC and a hill-climb:
-    ``magnify_tpu.ops.detect._detect_rois`` with the gather scorer.
+    ``magnify_tpu.ops.detect._detect_rois``, with the perimeter scorer or,
+    with :func:`use_conv_scorer`, the score maps of the whole batch (one
+    ring correlation) read at each circle.
 
     ``rois`` (N, L, L), each crop min-max normalized on its own and its
     edge stack run on the whole batch; ``keys`` (N, 2), one threefry key
@@ -274,18 +325,25 @@ def detect_rois_ransac(rois: torch.Tensor, low_q: float, high_q: float,
     """
     n, l, _ = rois.shape
     dev = rois.device
-    edges, _dx, _dy, angles = edge_pipeline(
-        rois.to(torch.float32), low_q, high_q, normalized=False, angles=True)
+    conv = use_conv_scorer()
+    edges, dx, dy, *angles = edge_pipeline(
+        rois.to(torch.float32), low_q, high_q, normalized=False,
+        angles=not conv)
     cands, any_edges = candidate_circles(edges, grid_length, num_iter, keys)
     uniq, uvalid, _n = dedupe_circles(
         cands, any_edges[:, None], height=l, width=l, min_radius=min_radius,
         max_radius=max_radius, cap=unique_cap)
     pad = 2 * max_radius
     shift = torch.tensor([pad, pad, 0], dtype=torch.int32, device=dev)
+    maps = _padded_maps(edges, dx, dy, min_radius, max_radius) if conv \
+        else None
 
     def scores_of(circles, valid):
         """Scores of (N, K, 3) circles, K per crop."""
-        return score_circles(angles, edges, circles + shift, valid,
+        if conv:
+            return gather_map_scores(maps, circles + shift, valid,
+                                     min_radius=min_radius)
+        return score_circles(angles[0], edges, circles + shift, valid,
                              max_radius=max_radius, pad=pad)
 
     thresh = torch.tensor(np.float32(min_roundness), device=dev)
@@ -317,20 +375,21 @@ def detect_best_in_rois(rois, low_edge_quantile: float,
                         seed: int = 0, unique_cap: int = ROI_UNIQUE_CAP):
     """Best circle per ROI for a batch of same-size ROIs (numpy or tensor):
     ``magnify_tpu.ops.detect.detect_best_in_rois``. ``detector``
-    "auto"/"dense" takes the dense branch; "ransac" runs ``num_iter``
-    proposals per ROI with keys ``split(PRNGKey(seed), N)`` and keeps
-    ``min(unique_cap, num_iter)`` uniques per ROI.
+    (:func:`resolve_detector`) "auto"/"dense" takes the dense branch;
+    "ransac" runs ``num_iter`` proposals per ROI with keys
+    ``split(PRNGKey(seed), N)`` and keeps ``min(unique_cap, num_iter)``
+    uniques per ROI.
     Returns numpy (circles (N, 3) int32, scores (N,), found (N,) bool)."""
     if isinstance(rois, np.ndarray):  # uint16 crops are exact in f32
         rois = torch.from_numpy(np.ascontiguousarray(rois, dtype=np.float32))
     rois = rois.to(device)
     args = (float(low_edge_quantile), float(high_edge_quantile),
             float(min_roundness))
-    if detector in ("auto", "dense"):
+    if resolve_detector(detector) == "dense":
         circles, scores = detect_rois_dense(
             rois, *args, min_radius=int(min_radius),
             max_radius=int(max_radius))
-    elif detector == "ransac":
+    else:
         if num_iter is None:
             raise ValueError("detect_best_in_rois: the RANSAC detector "
                              "needs num_iter")
@@ -341,8 +400,81 @@ def detect_best_in_rois(rois, low_edge_quantile: float,
             num_iter=num_iter, min_radius=int(min_radius),
             max_radius=int(max_radius),
             unique_cap=int(min(unique_cap, num_iter)))
-    else:
-        raise ValueError(f"unknown detector {detector!r}")
     circles = circles.cpu().numpy()
     scores = scores.cpu().numpy()
     return circles, scores, np.isfinite(scores)
+
+
+def _to_host(circles: torch.Tensor, scores: torch.Tensor):
+    return circles.cpu().numpy().astype(np.int32), scores.cpu().numpy()
+
+
+def find_circles(image, low_edge_quantile: float, high_edge_quantile: float,
+                 grid_length: int, num_iter: int, min_radius: int,
+                 max_radius: int, min_roundness: float, min_dist: int,
+                 gui=None, seed: int = 0, detector: str = "auto",
+                 device="cuda"):
+    """Detect circles in one image: ``magnify_tpu.ops.detect.find_circles``,
+    the upstream magnify contract.
+
+    ``image`` (H, W), a host array of any numeric dtype (uint16 values are
+    exact in the float32 upload) or a tensor. It is min-max normalized on
+    ``device``. Returns host (circles (n, 3) int32 (row, col, radius),
+    scores (n,) float32), best first, after greedy NMS at ``min_dist``
+    (none when it is 0). The detector (:func:`resolve_detector`) is dense,
+    or RANSAC with ``num_iter`` proposals in cells of ``grid_length`` from
+    the threefry key of ``seed``, scored as :func:`use_conv_scorer` says.
+    ``gui`` (the interactive tuning UI) is not ported and raises.
+    """
+    if gui is not None:
+        raise NotImplementedError(
+            "find_circles: the interactive tuning UI is not ported yet "
+            "(ROADMAP queue 1, item 9: plot)")
+    if isinstance(image, np.ndarray):
+        image = torch.from_numpy(np.ascontiguousarray(image,
+                                                      dtype=np.float32))
+    image = image.to(device)
+    args = (float(low_edge_quantile), float(high_edge_quantile),
+            float(min_roundness))
+    if resolve_detector(detector) == "dense":
+        return _to_host(*detect_dense(
+            image, *args, min_radius=int(min_radius),
+            max_radius=int(max_radius), min_dist=int(min_dist),
+            normalized=False))
+    circles, scores, _n = detect_ransac(
+        image, *args, grid_length=int(grid_length), num_iter=int(num_iter),
+        min_radius=int(min_radius), max_radius=int(max_radius),
+        min_dist=int(min_dist), key=prng.prng_key(int(seed), image.device),
+        normalized=False)
+    return _to_host(circles, scores)
+
+
+def find_circles_stack(images, low_edge_quantile: float,
+                       high_edge_quantile: float, min_radius: int,
+                       max_radius: int, min_roundness: float, min_dist: int,
+                       nms_cap: int = 4096, batch: int = 4,
+                       pull_cap: int = 511, device="cuda") -> list:
+    """Dense detection over a stack of planes:
+    ``magnify_tpu.ops.detect.find_circles_stack``.
+
+    ``images`` (B, H, W) are normalized to uint8 on the host
+    (:func:`normalize_planes_u8`, bit-equal to the device's normalization)
+    and uploaded ``batch`` planes at a time; each plane is detected by
+    :func:`detect_dense`, as :func:`find_circles` detects it densely.
+    Returns a list of (circles, scores) per plane. ``nms_cap`` and
+    ``pull_cap`` size the JAX package's static buffers; here the survivors
+    are taken whole, so they are validated and change nothing.
+    """
+    if min(int(nms_cap), int(pull_cap), int(batch)) < 1:
+        raise ValueError("find_circles_stack: nms_cap, batch and pull_cap "
+                         "must be >= 1")
+    planes = normalize_planes_u8(np.ascontiguousarray(images))
+    results = []
+    for start in range(0, planes.shape[0], int(batch)):
+        chunk = torch.from_numpy(planes[start:start + int(batch)]).to(device)
+        results += [_to_host(*detect_dense(
+            one, float(low_edge_quantile), float(high_edge_quantile),
+            float(min_roundness), min_radius=int(min_radius),
+            max_radius=int(max_radius), min_dist=int(min_dist)))
+            for one in chunk]
+    return results

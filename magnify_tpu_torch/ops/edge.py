@@ -34,6 +34,7 @@ __all__ = [
     "edge_pipeline",
     "fma_f32",
     "gaussian_blur5_u8",
+    "histogram_quantile",
     "histogram_quantiles",
     "normalize_to_u8",
     "scharr",
@@ -234,6 +235,13 @@ def histogram_quantiles(values: torch.Tensor, qs, *,
     frac_t = torch.as_tensor(frac, device=flat.device)
     out = fma_f32(frac_t.expand_as(x_k), x_k1 - x_k, x_k)
     return out.T if batched else out
+
+
+def histogram_quantile(values: torch.Tensor, q) -> torch.Tensor:
+    """The exact quantile ``q`` of all of ``values``: scalar-``q``
+    :func:`histogram_quantiles`, as ``magnify_tpu.ops.edge``'s
+    ``histogram_quantile`` (without its mesh arguments)."""
+    return histogram_quantiles(values, [np.float32(q)])[0]
 
 
 def canny_nms(dx: torch.Tensor, dy: torch.Tensor, low_thresh: torch.Tensor,

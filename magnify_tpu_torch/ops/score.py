@@ -37,8 +37,8 @@ import torch.nn.functional as F
 from magnify_tpu_torch import _build, utils
 from magnify_tpu_torch.ops.edge import fma_f32
 
-__all__ = ["RingWeights", "dedupe_circles", "perimeter_plan",
-           "perimeter_score", "raster_key_space", "ring_corr",
+__all__ = ["RingWeights", "dedupe_circles", "gather_map_scores",
+           "perimeter_plan", "perimeter_score", "raster_key_space", "ring_corr",
            "ring_corr_plain", "ring_weights", "score_circles",
            "score_circles_plain", "score_maps", "spread_lanes", "sum_form"]
 
@@ -307,6 +307,32 @@ def score_maps(edges, dx, dy, *, min_radius: int, max_radius: int):
                                  str(edges.device))
     acc = ring_corr(alignment_features_q8(edges, dx, dy), weights)
     return acc.to(torch.float32) * dq[:, None, None]
+
+
+def gather_map_scores(maps, circles, valid, *, min_radius: int):
+    """Each circle's score read out of the score maps
+    (``magnify_tpu.ops.score.gather_map_scores``): the conv scorer of the
+    RANSAC detector.
+
+    ``maps`` (n_radii, Hp, Wp) of one plane with ``circles`` (K, 3) int32
+    and ``valid`` (K,), or a batch (N, n_radii, Hp, Wp) with (N, K, 3) and
+    (N, K). The circles' rows and columns are in the padded coordinates of
+    the maps. The radius index, the row and the column are each clipped
+    into the maps, as the JAX package clips them, and an invalid circle
+    scores ``-inf``. The flat index is int64: frame C's chamber batch holds
+    1,568 x 12 x 132^2 entries.
+    """
+    n_radii, hp, wp = maps.shape[-3:]
+    r = torch.clamp(circles[..., 2].to(torch.int64) - min_radius, 0,
+                    n_radii - 1)
+    row = torch.clamp(circles[..., 0].to(torch.int64), 0, hp - 1)
+    col = torch.clamp(circles[..., 1].to(torch.int64), 0, wp - 1)
+    idx = (r * hp + row) * wp + col
+    if maps.ndim == 4:
+        plane = torch.arange(maps.shape[0], device=maps.device)[:, None]
+        idx = idx + plane * (n_radii * hp * wp)
+    scores = maps.reshape(-1)[idx]
+    return torch.where(valid, scores, -torch.inf)
 
 
 # ---------------------------------------------------------------------------

@@ -191,7 +191,9 @@ def microfluidic_chip(
         "auto" or "dense" (both the dense detector), or "ransac": the JAX
         package's unfused grid search, with Monte-Carlo circumcircle
         proposals from seed 0 scored by the exact perimeter ("gather")
-        scorer.
+        scorer, or with ``MAGNIFY_TPU_SCORER=conv`` read out of the int8
+        score maps. ``MAGNIFY_TPU_DETECTOR``, read per call, overrides
+        it.
     device :
         Torch device of the rotation and the button finder.
 
@@ -446,7 +448,9 @@ def beads(
         "auto" or "dense" (both the dense detector), or "ransac":
         Monte-Carlo circumcircle proposals from seed 0 scored by the exact
         perimeter ("gather") scorer, the JAX package's detector off the
-        TPU.
+        TPU (``MAGNIFY_TPU_SCORER=conv``: read out of the int8 score maps,
+        its scorer on the TPU). ``MAGNIFY_TPU_DETECTOR``, read per call,
+        overrides it.
     device :
         Torch device of the detector ("cuda", "cuda:1", "cpu", ...).
 

@@ -10,14 +10,19 @@ for frame A (1024^2, 110 beads) and frame B (2 channels, 2 x 2 tiles of
 ``magnify_tpu.microfluidic_chip`` for frame C8 (8 x 8 chambers on 900^2) and
 its 2-channel, 2-timestep variant C8V, as ``chip_smoke.py`` builds them;
 then frames A and C8 again with ``detector="ransac"`` at the default
-``num_iter`` (5,000,000 proposals, seed 0) and the exact perimeter scorer
-(``MAGNIFY_TPU_SCORER=gather``), under the keys ``RA_*`` and ``RC8_*``. It
-stores for each the mark rows (y, x) in mark order and sha256 digests of
-fg, bg and roi; for frame M also the decoded tags and ``ln_vol``, for the
-chip frames the chamber tags.
+``num_iter`` (5,000,000 proposals, seed 0), with the exact perimeter scorer
+(``MAGNIFY_TPU_SCORER=gather``) under the keys ``RA_*`` and ``RC8_*`` and
+with the conv scorer (``MAGNIFY_TPU_SCORER=conv``, each proposal's score
+read out of the int8 score maps) under ``RAconv_*`` and ``RC8conv_*``; and
+frame S (2 channels x 4 x 4 tiles of 1024^2, stitched to 3,688^2) through
+``beads_pipe`` with ``basic_correct`` after ``standardize_format`` and the
+dense detector, under ``S_*``. It stores for each the mark rows (y, x) in
+mark order and sha256 digests of fg, bg and roi; for frame M also the
+decoded tags and ``ln_vol``, for the chip frames the chamber tags.
 The score-quantization mode is read once when magnify_tpu is imported, so
 this script sets it (and the detector) before that import, in its own
-process; the detector is read per call and switches for the RANSAC frames.
+process; the detector and the scorer are read per call and switch for the
+RANSAC frames.
 Keys that the file already holds must come out unchanged: the script
 refuses to overwrite a file whose frames A, B, M, C8 or C8V would change.
 """
@@ -62,18 +67,26 @@ def main() -> None:
             out[f"{case}_{key}"] = np.asarray(val)
         print(f"frame {case}: {len(out[f'{case}_rows'])} marks, "
               f"roi {xp['roi'].shape}")
+    xp = chip_smoke.frame_s_pipe(mg, detector="dense")(
+        data=chip_smoke.as_dataarray(mg, "S"))
+    for key, val in chip_smoke.summarize(xp).items():
+        out[f"S_{key}"] = np.asarray(val)
+    print(f"frame S: {len(out['S_rows'])} marks, roi {xp['roi'].shape}")
     os.environ["MAGNIFY_TPU_DETECTOR"] = "ransac"
-    for case, kw in (("A", chip_smoke.FRAME_A_KW),
-                     ("C8", chip_smoke.FRAME_C8_KW)):
-        data = chip_smoke.as_dataarray(mg, case)
-        if case == "C8":
-            xp = mg.microfluidic_chip(data, detector="ransac", **kw)
-        else:
-            xp = mg.beads(data, detector="ransac", **kw)
-        for key, val in chip_smoke.summarize(xp).items():
-            out[f"R{case}_{key}"] = np.asarray(val)
-        print(f"frame {case}, RANSAC: {len(out[f'R{case}_rows'])} marks, "
-              f"roi {xp['roi'].shape}")
+    for scorer, suffix in (("gather", ""), ("conv", "conv")):
+        os.environ["MAGNIFY_TPU_SCORER"] = scorer
+        for case, kw in (("A", chip_smoke.FRAME_A_KW),
+                         ("C8", chip_smoke.FRAME_C8_KW)):
+            data = chip_smoke.as_dataarray(mg, case)
+            if case == "C8":
+                xp = mg.microfluidic_chip(data, detector="ransac", **kw)
+            else:
+                xp = mg.beads(data, detector="ransac", **kw)
+            name = f"R{case}{suffix}"
+            for key, val in chip_smoke.summarize(xp).items():
+                out[f"{name}_{key}"] = np.asarray(val)
+            print(f"frame {case}, RANSAC ({scorer}): "
+                  f"{len(out[f'{name}_rows'])} marks, roi {xp['roi'].shape}")
     tags = out["M_tag"]
     print(f"frame M: true {chip_smoke.frame_m()[1]}, found {len(tags)}, "
           f"coded {int((tags != 'outlier').sum())}, outliers "

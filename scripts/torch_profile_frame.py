@@ -36,10 +36,16 @@ frames A (1024^2) and B (1844^2 stitched plane, 1892^2 padded features):
    timesteps of 4096^2 uint16 OME-TIFF pages, 2.68 GB, written to a
    temporary directory first): ``beads`` and then ``quantify`` on it, one
    warm call each (the pages come from the page cache: the stack was just
-   written).
+   written);
+5. the rest of the single-card API: ``detector="ransac"`` with the conv
+   scorer (``MAGNIFY_TPU_SCORER=conv``): 3 warm ``beads()`` frames of A, 3
+   chips C8 and 2 of C, and their RANSAC stages (the score maps and the
+   map read-out in place of the perimeter scorer); ``fit_basic`` on each
+   channel of frame S (16 tiles of 1024^2; device time per call over 3
+   calls); 2 warm frames S through ``beads_pipe`` with ``basic_correct``.
 
-``--disk-only`` runs part 4 alone. It prints the card's name and power
-limit first. It exits 2 without a CUDA device.
+``--disk-only`` runs part 4 alone, ``--api-only`` part 5 alone. It prints
+the card's name and power limit first. It exits 2 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -125,7 +131,7 @@ def frame_profile(label, fn, reps=3, frames=1) -> None:
 # The functions of the RANSAC path, timed where ``ops.detect`` calls them.
 RANSAC_STAGES = ("detect_ransac", "detect_rois_ransac", "edge_pipeline",
                  "candidate_circles", "dedupe_circles", "score_circles",
-                 "parallel_greedy_nms")
+                 "_padded_maps", "gather_map_scores", "parallel_greedy_nms")
 
 
 def ransac_stages(label, run, reps=3) -> None:
@@ -148,8 +154,9 @@ def ransac_stages(label, run, reps=3) -> None:
                 start.record()
                 out = real(*args, **kw)
                 end.record()
-                if name == "score_circles":
-                    what = "x".join(map(str, args[2].shape[:-1]))
+                if name in ("score_circles", "gather_map_scores"):
+                    circles = args[2 if name == "score_circles" else 1]
+                    what = "x".join(map(str, circles.shape[:-1]))
                     what += " circles"
                 elif name == "dedupe_circles":
                     what = str(tuple(args[0][0].shape))
@@ -218,6 +225,42 @@ def disk_profile(dev) -> None:
                       lambda: mt.quantify(xp, device=dev), reps=1)
 
 
+def api_profile(dev) -> None:
+    """Part 5: the conv scorer's RANSAC frames, the BaSiC fit and frame S
+    through ``basic_correct``."""
+    import chip_smoke as cs
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.ops import basic
+
+    ransac = dict(detector="ransac", device=dev)
+    data_a = cs.as_dataarray(mt, "A")
+    data_c8 = cs.as_dataarray(mt, "C8")
+    data_c = cs.as_dataarray(mt, "C")
+    runs = (("beads frame A",
+             lambda: mt.beads(data_a, **ransac, **cs.FRAME_A_KW), 3),
+            ("microfluidic_chip frame C8",
+             lambda: mt.microfluidic_chip(data_c8, **ransac,
+                                          **cs.FRAME_C8_KW), 3),
+            ("microfluidic_chip frame C",
+             lambda: mt.microfluidic_chip(
+                 data_c, pinlist=cs.frame_c_pinlist(), **ransac,
+                 **cs.FRAME_C_KW), 2))
+    with cs._scorer("conv"):
+        for label, fn, reps in runs:
+            frame_profile(f"{label}, ransac, conv scorer", fn, reps=reps)
+        for label, fn, reps in runs:
+            ransac_stages(f"{label}, conv scorer", fn, reps=reps)
+    tiles, _beads = cs.frame_s()
+    for ci, ch in enumerate(cs.S_CHANNELS):
+        train = tiles[ci].reshape(-1, cs.TILE, cs.TILE)
+        frame_profile(f"fit_basic frame S channel {ch} (16 x 1024^2)",
+                      lambda: basic.fit_basic(train, device=dev))
+    data_s = cs.as_dataarray(mt, "S")
+    pipe = cs.frame_s_pipe(mt, device=dev)
+    frame_profile("beads_pipe + basic_correct frame S",
+                  lambda: pipe(data=data_s), reps=2)
+
+
 def main(argv) -> int:
     import torch
 
@@ -229,6 +272,9 @@ def main(argv) -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     if "--disk-only" in argv:
         disk_profile(torch.device("cuda"))
+        return 0
+    if "--api-only" in argv:
+        api_profile(torch.device("cuda"))
         return 0
 
     import chip_smoke as cs
@@ -297,6 +343,7 @@ def main(argv) -> int:
                       data_c, pinlist=cs.frame_c_pinlist(), **ransac,
                       **cs.FRAME_C_KW), reps=2)
     disk_profile(dev)
+    api_profile(dev)
     return 0
 
 

@@ -19,7 +19,11 @@ nine crops of 48 and 72 pixels, circles and scores exact, an empty crop
 unfused grid search: RANSAC per search channel, the float64 numpy grid fit
 and one RANSAC + hill-climb batch over the chamber crops) the 2 x 2, the
 3 x 3 with blanks and the 3 x 5 grids must come out equal in every
-variable, the blank chambers' float64 intersections included.
+variable, the blank chambers' float64 intersections included; the 2 x 2 and
+the 3 x 5 grids run again with the conv scorer (``MAGNIFY_TPU_SCORER=conv``:
+the whole-plane search reads its plane's int8 score maps, the chamber batch
+and its hill-climb read the maps of all crops from one ring correlation),
+equal in every variable to the JAX package's conv scorer.
 
 The reference runs in ONE subprocess for the whole file (this file run as
 a script), for the reasons given in test_torch_slice: the quantization mode
@@ -114,6 +118,7 @@ def case_inputs(case):
 
 CASES = ("2x2", "3x3_blanks", "3x5", "2ch2t", "fixed")
 RANSAC_CASES = ("2x2", "3x3_blanks", "3x5")
+CONV_CASES = ("2x2", "3x5")
 #: Whole-plane RANSAC proposals of the chip cases; each chamber gets
 #: RANSAC_ITER // n_chambers.
 RANSAC_ITER = 20000
@@ -231,6 +236,27 @@ def test_chip_matches_jax_ransac(reference, case):
     import magnify_tpu_torch as mt
 
     tag = f"ransac/{case}"
+    got = _flatten(run_case(mt, case, device="cpu", detector="ransac",
+                            num_iter=RANSAC_ITER), tag)
+    want = {k: v for k, v in reference.items() if k.startswith(tag + "/")}
+    assert sorted(got) == sorted(want)
+    assert (got[f"{tag}/tag"] != "").sum() >= 4
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_chip_matches_jax_ransac_conv(reference, case, monkeypatch):
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.ops import detect as tdetect
+
+    def no_perimeter(*args, **kwargs):
+        raise AssertionError("the conv scorer reached the perimeter scorer")
+
+    tag = f"conv/{case}"
+    monkeypatch.setenv("MAGNIFY_TPU_SCORER", "conv")
+    monkeypatch.setattr(tdetect, "score_circles", no_perimeter)
     got = _flatten(run_case(mt, case, device="cpu", detector="ransac",
                             num_iter=RANSAC_ITER), tag)
     want = {k: v for k, v in reference.items() if k.startswith(tag + "/")}
@@ -423,4 +449,8 @@ if __name__ == "__main__":
     for name in RANSAC_CASES:
         xp = run_case(mg, name, detector="ransac", num_iter=RANSAC_ITER)
         result.update(_flatten(xp, f"ransac/{name}"))
+    os.environ["MAGNIFY_TPU_SCORER"] = "conv"
+    for name in CONV_CASES:
+        xp = run_case(mg, name, detector="ransac", num_iter=RANSAC_ITER)
+        result.update(_flatten(xp, f"conv/{name}"))
     np.savez(sys.argv[1], **result)

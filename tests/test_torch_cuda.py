@@ -9,7 +9,9 @@ test_torch_chip, with the dense and the RANSAC detector; the RANSAC stages
 (threefry streams, proposals, dedupe, the perimeter scorer) against the CPU;
 the decode's device stages
 (masked reductions, lattice fit, EM, ``identify_mrbles``) against the CPU;
-and the frame streams against the single-frame calls. Without a CUDA device
+the frame streams against the single-frame calls; the RANSAC conv scorer,
+the BaSiC fit and ``find_circles``/``find_circles_stack`` against the
+CPU. Without a CUDA device
 every test skips. On a machine with one (and no JAX), run:
 
     MAGNIFY_TPU_TEST_BACKEND=gpu python -m pytest tests/test_torch_cuda.py -m cuda
@@ -608,3 +610,82 @@ def test_out_of_core_beads_and_quantify_on_the_card(cuda, tmp_path,
     magnitude = float(np.abs(ram["roi"].values).max())
     assert np.abs(on_card - out["cpu"].intensity.values).max() <= (
         treduce.MEAN_RTOL * magnitude)
+
+
+@pytest.mark.parametrize("case", ["single", "2x2", "3x5"])
+def test_ransac_conv_cuda_matches_cpu(cuda, case, monkeypatch):
+    """The conv scorer (``MAGNIFY_TPU_SCORER=conv``): the card launches
+    hysteresis and the ring correlation (the whole plane's maps, and for a
+    chip the chamber batch's), never the perimeter scorer, and gives the
+    CPU's result in every variable."""
+    import magnify_tpu_torch as mt
+    import test_torch_chip
+    import test_torch_slice
+
+    run_case, iters = ((test_torch_slice.run_case,
+                        test_torch_slice.RANSAC_ITER) if case == "single"
+                       else (test_torch_chip.run_case,
+                             test_torch_chip.RANSAC_ITER))
+    monkeypatch.setenv("MAGNIFY_TPU_SCORER", "conv")
+    before = thyst.launches, tscore.launches, tscore.perimeter_launches
+    got = test_torch_slice.flatten(run_case(mt, case, device="cuda",
+                                            detector="ransac",
+                                            num_iter=iters), case)
+    n_calls = 1 if case == "single" else 2
+    assert thyst.launches - before[0] == n_calls * thyst.LAUNCHES_PER_CALL
+    assert tscore.launches - before[1] == n_calls
+    assert tscore.perimeter_launches == before[2]
+    want = test_torch_slice.flatten(run_case(mt, case, device="cpu",
+                                             detector="ransac",
+                                             num_iter=iters), case)
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("darkfield", [True, False])
+def test_fit_basic_cuda_matches_cpu(cuda, darkfield):
+    """The BaSiC solver on the card (matrix products in full float32)
+    within the tolerances it keeps against the JAX package on the CPU."""
+    from magnify_tpu_torch.ops import basic as tbasic
+    from test_torch_basic import DARK_RTOL, FLAT_ATOL, shading_tiles
+
+    tiles, _flat = shading_tiles(8, 256, 256, 0)
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32: the fit must not use it
+    try:
+        f_g, d_g = tbasic.fit_basic(tiles, get_darkfield=darkfield,
+                                    device="cuda")
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    f_c, d_c = tbasic.fit_basic(tiles, get_darkfield=darkfield, device="cpu")
+    np.testing.assert_allclose(f_g, f_c, rtol=0, atol=FLAT_ATOL)
+    mean = float(tiles.astype(np.float32).mean())
+    np.testing.assert_allclose(d_g, d_c, rtol=0, atol=DARK_RTOL * mean)
+
+
+@pytest.mark.parametrize("detector,scorer", [("dense", None),
+                                             ("ransac", "gather"),
+                                             ("ransac", "conv")])
+def test_find_circles_cuda_matches_cpu(cuda, detector, scorer, monkeypatch):
+    import magnify_tpu_torch as mt
+    from test_torch_ops_api import ARGS, STACK_KW, plane
+
+    if scorer:
+        monkeypatch.setenv("MAGNIFY_TPU_SCORER", scorer)
+    got = mt.ops.find_circles(plane(2), *ARGS, detector=detector,
+                              device="cuda")
+    want = mt.ops.find_circles(plane(2), *ARGS, detector=detector,
+                               device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    if detector == "dense":
+        stack = np.stack([plane(s) for s in (3, 4, 5)])
+        for g, w in zip(
+                mt.ops.find_circles_stack(stack, **STACK_KW, batch=2,
+                                          device="cuda"),
+                mt.ops.find_circles_stack(stack, **STACK_KW, batch=2,
+                                          device="cpu")):
+            np.testing.assert_array_equal(g[0], w[0])
+            np.testing.assert_array_equal(g[1], w[1])

@@ -64,6 +64,9 @@ def test_import_loads_neither_jax_nor_magnify_tpu():
             "import magnify_tpu_torch.accessor\n"
             "import magnify_tpu_torch.components.quantify\n"
             "import magnify_tpu_torch.components.preprocess\n"
+            "import magnify_tpu_torch.ops.basic\n"
+            "import magnify_tpu_torch.ops.detect\n"
+            "import magnify_tpu_torch.core.pipeline\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu',\n"
             "                                    'pandas', 'bs4', 'h5py',\n"

@@ -14,7 +14,10 @@ both packages) and the f64 ``ln_vol``/``ln_ratio`` included. The same
 four fixtures run again with ``detector="ransac"`` (``RANSAC_ITER``
 proposals per search channel, seed 0, the exact perimeter scorer) against
 the JAX package's RANSAC detector with the gather scorer: every variable
-equal.
+equal. ``CONV_CASES`` run once more with the conv scorer
+(``MAGNIFY_TPU_SCORER=conv``: each unique proposal's score read out of the
+plane's int8 score maps) against the JAX package's conv scorer: every
+variable equal.
 
 The reference runs in ONE subprocess per session (this file run as a
 script): the JAX package reads its score-quantization mode once at import,
@@ -22,7 +25,9 @@ its CPU defaults are the bf16 scorer and the ransac detector, and its jitted
 stages cache traces per process, so an in-process run could meet a trace
 or mode left by another test file. The RANSAC references come from the same
 subprocess, which switches ``MAGNIFY_TPU_DETECTOR`` (read per call) to
-"ransac" and pins ``MAGNIFY_TPU_SCORER=gather`` after the dense runs.
+"ransac" and pins ``MAGNIFY_TPU_SCORER=gather`` after the dense runs, then
+``conv`` for the conv cases. The port reads both variables per call too;
+its conv test sets the scorer only for its own duration.
 """
 
 import os
@@ -93,6 +98,9 @@ CASES = ("single", "two_channel", "tiled")
 #: Proposals per search channel of the RANSAC cases (the JAX package's own
 #: bead tests run 100 to 20,000).
 RANSAC_ITER = 20000
+
+#: The RANSAC cases run again with the conv scorer.
+CONV_CASES = ("single", "two_channel")
 
 MRBLES_SPECTRA = "name,c1,c2\neu,1.0,0.1\ndy,0.1,1.0\n"
 MRBLES_CODES = "name,eu,dy\ncode_a,1.0,0.0\ncode_b,1.0,1.0\n"
@@ -207,9 +215,30 @@ def test_matches_jax_ransac(reference, case):
         np.testing.assert_array_equal(got[key], val, err_msg=key)
 
 
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_matches_jax_ransac_conv(reference, case, monkeypatch):
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.ops import detect as tdetect
+
+    def no_perimeter(*args, **kwargs):
+        raise AssertionError("the conv scorer reached the perimeter scorer")
+
+    tag = f"conv/{case}"
+    monkeypatch.setenv("MAGNIFY_TPU_SCORER", "conv")
+    monkeypatch.setattr(tdetect, "score_circles", no_perimeter)
+    got = flatten(run_case(mt, case, device="cpu", detector="ransac",
+                           num_iter=RANSAC_ITER), tag)
+    want = {k: v for k, v in reference.items() if k.startswith(tag + "/")}
+    assert sorted(got) == sorted(want)
+    assert got[f"{tag}/x"].shape[0] >= 4
+    for key, val in want.items():
+        assert got[key].dtype == val.dtype, key
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
+
+
 if __name__ == "__main__":
     # The reference run: the JAX package, dense detector, int8 maps; then
-    # its RANSAC detector with the gather scorer.
+    # its RANSAC detector with the gather scorer and with the conv scorer.
     assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
     assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
     sys.path.insert(0, ROOT)
@@ -224,4 +253,9 @@ if __name__ == "__main__":
         result.update(flatten(run_case(mg, name, detector="ransac",
                                        num_iter=RANSAC_ITER),
                               f"ransac/{name}"))
+    os.environ["MAGNIFY_TPU_SCORER"] = "conv"
+    for name in CONV_CASES:
+        result.update(flatten(run_case(mg, name, detector="ransac",
+                                       num_iter=RANSAC_ITER),
+                              f"conv/{name}"))
     np.savez(sys.argv[1], **result)
