@@ -118,6 +118,23 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
      stack's bytes; the marks equal to the 4 search planes run in memory,
      every one of the 1,760 drawn beads within 1 px; prints the write
      time, each stage's wall time and RSS peak;
+   * under device meshes (``magnify_tpu_torch.parallel``): a (2, 4) and a
+     (1, 4) mesh of the first card (one card named 8 and 4 times) and,
+     where there are several cards, a mesh over all of them. The sharded
+     hysteresis against ``hysteresis_plain`` on frame A's masks, frame C's
+     plane and a serpentine that crosses every band boundary (rounds and
+     launches printed); then under each mesh ``beads`` A and B,
+     ``mrbles`` M, ``microfluidic_chip`` C8 and C, RANSAC ``beads`` A at
+     5,000,000 proposals and ``find_circles_stack`` over 8 planes, each
+     equal to the single-device run of this call (and the golden file, or
+     for C the drawn buttons), with warm ms beside one device's for A, C8
+     and C; and the out-of-core stack under each mesh in a child
+     (``--out-of-core DIR --mesh``), equal to the single-device child's
+     saved result (marks, masks, ROI store);
+   * the tuning UI, headless (without matplotlib or a GUI backend):
+     ``beads(interactive=True)`` on A, ``microfluidic_chip(interactive=
+     True)`` on C8 and ``ops.find_circles(gui=InteractiveUI())`` on A's
+     plane, each equal to its call without the UI;
 4. decode at device scale: ``identify_mrbles`` alone on 8,192 marks x 5
    channels x 32^2 ROIs over the 24-code panel; tags on ``cuda`` must equal
    tags on ``cpu``; prints the stage times on both;
@@ -138,7 +155,8 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
 
 Any failed check raises: the script exits nonzero and prints no result.
 Without a CUDA device it exits 2 at once. ``--kernels-only`` stops after
-phase 2. ``--out-of-core DIR`` is the child of the out-of-core phase.
+phase 2. ``--out-of-core DIR`` is the child of the out-of-core phase, and
+``--out-of-core DIR --mesh`` the one of the mesh phase.
 
 The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`,
 :func:`frame_c8`, :func:`frame_c`, :func:`frame_s`) need
@@ -1337,11 +1355,14 @@ def main_path(records: list, dev) -> None:
     _say(f"frame M: {ms_stream_m:.3f} ms per frame streamed (6 frames, "
          f"depth 2, median of 3) vs {ms_serial_m:.3f} ms serial")
 
-    results = {"B": xb}
+    results = {"A": xa, "B": xb, "M": xm}
     chip_ms = chip_paths(mt, dev, golden, by_path, results)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         disk_paths(mt, dev, golden, by_path, results,
                    {"B": ms_b, "C": chip_ms["C"]}, pathlib.Path(tmp))
+        mesh_phase(mt, dev, golden, by_path, results, dict(chip_ms, A=ms_a),
+                   pathlib.Path(tmp), records)
+    interactive_phase(mt, dev, by_path, results)
     gather_ms = ransac_paths(mt, dev, golden, by_path, dict(chip_ms, A=ms_a))
     ransac_paths(mt, dev, golden, by_path, gather_ms, scorer="conv")
     ops_phase(mt, dev, by_path)
@@ -1362,10 +1383,13 @@ def main_path(records: list, dev) -> None:
         launches = {path: counts[name]
                     for path, counts in batched_by_path.items()
                     if counts[name]}
-        if not launches or set(launches) - {
+        # Batches of planes: the chip paths' chamber crops, and the bands
+        # a mesh's paths give one card.
+        if not launches or {p for p in launches
+                            if not p.startswith("mesh ")} - {
                 "chip_c8", "chip_c8_2ch2t", "chip_c", "chip_c from a TIFF",
                 "chip_c8 ransac", "chip_c ransac", "chip_c8 ransac conv",
-                "chip_c ransac conv"}:
+                "chip_c ransac conv", "chip_c8 interactive"}:
             raise AssertionError(f"{name}: launched in {sorted(launches)}")
         brec = {k: rec[k] for k in ("route", "source", "replaces",
                                     "launches_per_call", "max_abs_err",
@@ -1418,6 +1442,7 @@ def chip_paths(mt, dev, golden, by_path: dict, results: dict) -> dict:
             raise AssertionError(f"frame {case}: {found}/{n_marks} buttons")
         _check_case(case, xc, golden)
         if case == "C8":  # half a minute of float64 convolutions on the CPU
+            results["C8"] = xc
             x_cpu = mt.microfluidic_chip(data, device="cpu", **FRAME_C8_KW)
             _assert_same_frame("frame C8 on cuda vs cpu", xc, x_cpu)
             _say("frame C8: device='cuda' equals device='cpu' row for row "
@@ -1951,10 +1976,11 @@ class _RssSampler:
         return False
 
 
-def out_of_core_child(root: pathlib.Path) -> int:
+def out_of_core_child(root: pathlib.Path, mesh: bool = False) -> int:
     """``--out-of-core ROOT``: the out-of-core path alone, in a process of
     its own so that its peak RSS is its own (:func:`run_out_of_core` on the
-    card). Prints one line ``OOC_RESULT {json}``."""
+    card). Prints one line ``OOC_RESULT {json}``. With ``--mesh``:
+    :func:`out_of_core_mesh_child`, printed as ``OOC_MESH {json}``."""
     import torch
 
     from magnify_tpu_torch import _build
@@ -1966,6 +1992,10 @@ def out_of_core_child(root: pathlib.Path) -> int:
 
     dev = torch.device("cuda")
     _build.load()
+    if mesh:
+        print("OOC_MESH " + json.dumps(out_of_core_mesh_child(root, dev)),
+              flush=True)
+        return 0
     # Warm the process before its baseline is read: one in-memory beads()
     # on the base plane loads the CUDA kernels the detection uses at this
     # plane size (their images count in RSS, once).
@@ -2245,12 +2275,367 @@ def check_out_of_core(mt, dev, tmp: pathlib.Path, res: dict) -> None:
                              f"{len(drawn)} drawn beads found")
 
 
+# --------------------------------------------------------------------------
+# Device meshes and the tuning UI
+# --------------------------------------------------------------------------
+
+#: The meshes of the mesh phase, on the first card: (batch, space).
+MESH_SHAPES = ((2, 4), (1, 4))
+
+
+def _mesh_names(n_cards: int) -> list:
+    """(name, batch, space, devices) of every mesh the phase runs: the
+    virtual meshes of :data:`MESH_SHAPES` on ``cuda:0`` and, with more
+    than one card, one over the distinct cards."""
+    out = [(f"{b}x{s}", b, s, ["cuda:0"] * (b * s)) for b, s in MESH_SHAPES]
+    if n_cards > 1:
+        out.append((f"1x{n_cards} cards", 1, n_cards,
+                    [f"cuda:{i}" for i in range(n_cards)]))
+    return out
+
+
+def _vertical_serpentine(h: int = 256, w: int = 128, passes: int = 6):
+    """One chain that runs down and up the plane ``passes`` times, so it
+    crosses every boundary of a row split ``passes`` times."""
+    chain = np.zeros((h, w), bool)
+    cols = list(range(4, 4 + 20 * passes, 20))
+    for k, c in enumerate(cols):
+        chain[2:h - 2, c] = True
+        if k + 1 < len(cols):
+            chain[h - 3 if k % 2 == 0 else 2, c:cols[k + 1] + 1] = True
+    strong = np.zeros_like(chain)
+    strong[2, cols[0]] = True
+    return strong, chain
+
+
+class _KernelInputs:
+    """The inputs of every ``hysteresis`` and ``ring_corr`` call made on
+    the card within the block (:func:`spy` on each module that binds the
+    wrapper), so that the kernels can be held against their plain twins at
+    the shapes a mesh path gives them, after its counted run."""
+
+    def __init__(self):
+        self.calls = {"hysteresis": [], "ring_corr": []}
+        self._stack = contextlib.ExitStack()
+
+    def _recorder(self, name: str):
+        def wrap(real):
+            def call(*args, **kw):
+                if args[0].device.type == "cuda":
+                    self.calls[name].append(args[:2])
+                return real(*args, **kw)
+            return call
+        return wrap
+
+    def __enter__(self):
+        from magnify_tpu_torch.ops import edge, score
+        from magnify_tpu_torch.ops import hysteresis as hyst
+        from magnify_tpu_torch.parallel import mesh
+
+        for mod in (hyst, edge, mesh):
+            self._stack.enter_context(
+                spy(mod, "hysteresis", self._recorder("hysteresis")))
+        self._stack.enter_context(
+            spy(score, "ring_corr", self._recorder("ring_corr")))
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.close()
+        return False
+
+
+def _hold_recorded(what: str, seen: _KernelInputs, records=None,
+                   tag: str | None = None) -> None:
+    """Each recorded call's kernel result (launched again here, outside the
+    counted run) against its plain twin on the same inputs, exactly. With
+    ``tag`` the first call of each kernel (the mesh's bands: round 1 of
+    the hysteresis, the banded score maps) is also timed against the
+    plain twin, its bound and, for ``ring_corr``, the library convolution,
+    into ``records`` under keys ending in ``tag``."""
+    import torch
+    import torch.nn.functional as F
+
+    from magnify_tpu_torch.ops import hysteresis as hyst
+    from magnify_tpu_torch.ops import score
+
+    recs = {r["name"]: r for r in records or ()}
+    shapes: dict = {}
+    for k, (strong, weak) in enumerate(seen.calls["hysteresis"]):
+        got = hyst.hysteresis(strong, weak)
+        want = []
+        p_ms = _event_once_ms(
+            lambda: want.append(hyst.hysteresis_plain(strong, weak)))
+        if not torch.equal(got, want[0]):
+            raise AssertionError(
+                f"{what}: hysteresis kernel != plain twin on call {k} "
+                f"{tuple(strong.shape)}: {int((got != want[0]).sum())} "
+                "pixels differ")
+        shapes.setdefault("hysteresis", set()).add(tuple(strong.shape))
+        if tag is not None and k == 0:
+            k_ms = _event_ms(lambda: hyst.hysteresis(strong, weak), 20)
+            bound_ms, _by = _bound(3 * strong.numel(), 0)
+            recs["hysteresis"].update({
+                f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
+                f"bound_ms{tag}": bound_ms,
+                f"bound_share{tag}": bound_ms / k_ms,
+                f"shape{tag}": list(strong.shape)})
+            _say(f"{what}: hysteresis at the bands {tuple(strong.shape)}: "
+                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (one call), "
+                 f"bound {bound_ms:.5f} ms (bytes)")
+    for k, (feats, weights) in enumerate(seen.calls["ring_corr"]):
+        got = score.ring_corr(feats, weights)
+        want = []
+        p_ms = _event_once_ms(
+            lambda: want.append(score.ring_corr_plain(feats, weights)))
+        if got.shape != want[0].shape or not torch.equal(got, want[0]):
+            raise AssertionError(f"{what}: ring_corr kernel != plain twin "
+                                 f"on call {k} {tuple(feats.shape)}")
+        del got, want
+        shapes.setdefault("ring_corr", set()).add(tuple(feats.shape))
+        if tag is not None and k == 0:
+            n_r, _c, ksz, _ = weights.dense.shape
+            nnz = int((weights.dense != 0).sum())
+            px = feats.numel() // 8
+            k_ms = _event_ms(lambda: score.ring_corr(feats, weights), 10)
+            ff = feats.float().reshape(-1, 8, *feats.shape[-2:])
+            dense_f = weights.dense.float()
+            lib_ms = _event_ms(
+                lambda: F.conv2d(ff, dense_f, padding=ksz // 2), 3)
+            del ff
+            bound_ms, bound_by = _bound((8 + 4 * n_r) * px, 2 * nnz * px)
+            recs["ring_corr"].update({
+                f"ms{tag}": k_ms, f"plain_ms{tag}": p_ms,
+                f"library_ms{tag}": lib_ms, f"bound_ms{tag}": bound_ms,
+                f"bound_share{tag}": bound_ms / k_ms,
+                f"shape{tag}": list(feats.shape)})
+            _say(f"{what}: ring_corr at the bands {tuple(feats.shape)}: "
+                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (one call), "
+                 f"library conv2d {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                 f"({bound_by})")
+    counts = {name: len(calls) for name, calls in seen.calls.items()}
+    _say(f"{what}: kernels == plain twins on every call of the path "
+         f"{counts}, shapes {dict((n, sorted(v)) for n, v in shapes.items())}")
+    seen.calls = {name: [] for name in seen.calls}
+
+
+def mesh_phase(mt, dev, golden, by_path: dict, singles: dict,
+               ms_single: dict, tmp: pathlib.Path, records: list) -> None:
+    """The main paths under ``use_mesh``: each mesh of :func:`_mesh_names`
+    runs beads A and B, mrbles M, the chip on C8 and C, RANSAC beads A at
+    5,000,000 proposals and find_circles_stack over 8 planes, each against
+    the single-device run of this call (``singles``) and the golden file;
+    first the sharded hysteresis against ``hysteresis_plain`` (frame A's
+    masks, frame C's plane, a serpentine across every band boundary), its
+    rounds printed; last the out-of-core stack under every mesh in a child
+    (``--out-of-core DIR --mesh``) against the single-device child's saved
+    result. Every kernel call of every mesh path is recorded and held
+    against its plain twin after the path (:func:`_hold_recorded`); the
+    bands of frames A and C are timed into ``records`` (keys ending in
+    ``_mesh_<mesh>_a`` and ``_c``)."""
+    import torch
+
+    from magnify_tpu_torch.ops import hysteresis as hyst
+    from magnify_tpu_torch.parallel import make_mesh, use_mesh
+    from magnify_tpu_torch.parallel.mesh import sharded_hysteresis
+
+    n_cards = torch.cuda.device_count()
+    meshes = [(name, make_mesh(b, s, devices=devs))
+              for name, b, s, devs in _mesh_names(n_cards)]
+    _say(f"mesh phase: {n_cards} card(s) visible; meshes "
+         f"{[name for name, _m in meshes]}")
+    strong_a, weak_a, _f = _stages(frame_a()[0], dev)
+    strong_c, weak_c, _f = _stages(frame_c()[0][0], dev)
+    serp = [torch.as_tensor(m).to(dev) for m in _vertical_serpentine()]
+    cases = (("frame A's masks", strong_a, weak_a),
+             ("frame C's plane", strong_c, weak_c),
+             ("a serpentine across every band boundary", *serp))
+    want = [hyst.hysteresis_plain(s, w) for _name, s, w in cases]
+    for name, mesh in meshes:
+        for (what, s, w), ref in zip(cases, want):
+            before = hyst.launches
+            got, rounds = sharded_hysteresis(s, w, mesh)
+            launches = hyst.launches - before
+            if not torch.equal(got, ref):
+                raise AssertionError(f"mesh {name}: sharded hysteresis on "
+                                     f"{what} differs from hysteresis_plain")
+            _say(f"mesh {name}: sharded hysteresis on {what} "
+                 f"{tuple(s.shape)} equals hysteresis_plain; {rounds} "
+                 f"rounds, {launches} kernel launches")
+    del strong_c, weak_c
+
+    data = {case: as_dataarray(mt, case) for case in ("A", "B", "C8", "C")}
+    data["M"] = as_dataarray(mt, "M")
+    planes = np.stack([frame_a(seed)[0] for seed in range(8)])
+    stack_kw = dict(low_edge_quantile=FIND_ARGS[0],
+                    high_edge_quantile=FIND_ARGS[1],
+                    min_radius=FIND_ARGS[4], max_radius=FIND_ARGS[5],
+                    min_roundness=FIND_ARGS[6], min_dist=FIND_ARGS[7],
+                    batch=4, device=dev)
+    stack_single = mt.ops.find_circles_stack(planes, **stack_kw)
+    ransac_kw = dict(detector="ransac", device=dev)
+    ransac_single = mt.beads(data["A"], **ransac_kw, **FRAME_A_KW)
+
+    def run_c():
+        return mt.microfluidic_chip(data["C"], pinlist=frame_c_pinlist(),
+                                    device=dev, **FRAME_C_KW)
+
+    runs = (
+        ("beads A", "A", DENSE,
+         lambda: mt.beads(data["A"], device=dev, **FRAME_A_KW)),
+        ("beads B", "B", DENSE,
+         lambda: mt.beads(data["B"], device=dev, **FRAME_B_KW)),
+        ("mrbles M", "M", DENSE, lambda: _mrbles(mt, data["M"], dev)),
+        ("chip_c8", "C8", DENSE,
+         lambda: mt.microfluidic_chip(data["C8"], device=dev,
+                                      **FRAME_C8_KW)),
+        ("chip_c", "C", DENSE, run_c),
+        ("beads A ransac", "RA", RANSAC,
+         lambda: mt.beads(data["A"], **ransac_kw, **FRAME_A_KW)),
+    )
+    singles = dict(singles, RA=ransac_single)
+    timed = {"A": "a", "C": "c"}
+    for name, mesh in meshes:
+        with use_mesh(mesh):
+            for path, case, kernels, run in runs:
+                with _KernelInputs() as seen, \
+                        _Launches(by_path, f"mesh {name} {path}", kernels):
+                    out = run()
+                _hold_recorded(
+                    f"mesh {name} {path}", seen, records,
+                    f"_mesh_{name}_{timed[case]}" if case in timed else None)
+                _assert_same_frame(f"mesh {name} {path}", out, singles[case])
+                if case == "C":
+                    _check_frame_c(f"mesh {name} frame C", out)
+                else:
+                    _check_case(case, out, golden)
+                _say(f"mesh {name} {path}: equals the single-device run "
+                     "(rows, fg/bg/roi digests, tags)")
+            path = f"mesh {name} find_circles_stack 8 x A"
+            with _KernelInputs() as seen, _Launches(by_path, path):
+                res = mt.ops.find_circles_stack(planes, **stack_kw)
+            _hold_recorded(path, seen)
+            for k, ((c, sc), (wc, ws)) in enumerate(zip(res, stack_single)):
+                if not (np.array_equal(c, wc) and np.array_equal(sc, ws)):
+                    raise AssertionError(f"{path}: plane {k} differs from "
+                                         "the single-device stack")
+            _say(f"{path}: every plane equals the single-device stack")
+            for case, reps, run in (("A", 3, runs[0][3]),
+                                    ("C8", 3, runs[3][3]),
+                                    ("C", 2, run_c)):
+                ms = _time_ms(run, reps)
+                _say(f"mesh {name}: frame {case} warm {ms:.3f} ms (median "
+                     f"of {reps}) vs one device {ms_single[case]:.3f} ms")
+    mesh_out_of_core(mt, by_path, tmp)
+
+
+def mesh_out_of_core(mt, by_path: dict, tmp: pathlib.Path) -> None:
+    """The out-of-core stack under every mesh, in a child (``--out-of-core
+    DIR --mesh``): its marks, masks and ROI store against what the
+    single-device child saved (``DIR/ooc.npz``)."""
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(pathlib.Path(__file__)
+                                                .resolve()),
+                            "--out-of-core", str(tmp), "--mesh"],
+                           capture_output=True, text=True, timeout=600)
+    for line in child.stdout.splitlines():
+        if not line.startswith("OOC_MESH "):
+            _say("  [out-of-core mesh child]", line)
+    if child.returncode != 0:
+        raise AssertionError(f"out-of-core mesh child exited "
+                             f"{child.returncode}:\n{child.stderr[-4000:]}")
+    res = json.loads(next(line for line in child.stdout.splitlines()
+                          if line.startswith("OOC_MESH "))[9:])
+    single = mt.load(tmp / "ooc.npz")
+    for name, got in res.items():
+        by_path[f"mesh {name} beads OOC"] = got["launches"]
+        by_path["_batched"][f"mesh {name} beads OOC"] = got["batched"]
+        arrays = np.load(tmp / f"ooc_mesh_{name}.npz")
+        for var in ("x", "y", "fg", "bg"):
+            want = np.asarray(single[var].transpose("mark", "time",
+                                                    ...).values)
+            if not np.array_equal(arrays[var], want):
+                raise AssertionError(f"mesh {name} beads OOC: {var} differs "
+                                     "from the single-device child")
+        if got["roi"] != digest(single["roi"].transpose(
+                "mark", "channel", "time", ...).values):
+            raise AssertionError(f"mesh {name} beads OOC: the ROI store "
+                                 "differs from the single-device child")
+        _say(f"mesh {name} beads OOC: {got['n_marks']} marks, masks and ROI "
+             f"store equal the single-device child; beads "
+             f"{got['seconds']:.3f} s")
+    _say(f"out-of-core mesh child: {time.perf_counter() - t0:.3f} s")
+
+
+def out_of_core_mesh_child(root: pathlib.Path, dev) -> dict:
+    """``--out-of-core ROOT --mesh``: ``beads`` on the out-of-core stack
+    under each mesh of :func:`_mesh_names`, every kernel call held against
+    its plain twin after the run; saves each result's x, y, fg, bg to
+    ``ROOT/ooc_mesh_NAME.npz`` and returns launches, seconds and the ROI
+    store's digest per mesh."""
+    import torch
+
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch.parallel import make_mesh, use_mesh
+
+    out = {}
+    for name, b, s, devs in _mesh_names(torch.cuda.device_count()):
+        by_path: dict = {}
+        t0 = time.perf_counter()
+        with use_mesh(make_mesh(b, s, devices=devs)), \
+                _KernelInputs() as seen, \
+                _Launches(by_path, f"mesh {name} beads OOC"):
+            xp = mt.beads(str(root / OOC_PATTERN), device=dev, **OOC_KW)
+        seconds = time.perf_counter() - t0
+        _hold_recorded(f"mesh {name} beads OOC", seen)
+        np.savez(root / f"ooc_mesh_{name}.npz",
+                 **{v: np.asarray(xp[v].transpose("mark", "time", ...).values)
+                    for v in ("x", "y", "fg", "bg")})
+        out[name] = {
+            "launches": by_path[f"mesh {name} beads OOC"],
+            "batched": by_path["_batched"][f"mesh {name} beads OOC"],
+            "seconds": seconds, "n_marks": int(xp.sizes["mark"]),
+            "roi": digest(xp["roi"].transpose("mark", "channel", "time",
+                                              ...).values)}
+    return out
+
+
+def interactive_phase(mt, dev, by_path: dict, singles: dict) -> None:
+    """The tuning UI, headless (no matplotlib or no GUI backend: each stage
+    once with the defaults): ``beads(interactive=True)`` on frame A,
+    ``microfluidic_chip(interactive=True)`` on frame C8 and
+    ``ops.find_circles(gui=InteractiveUI())`` on frame A's plane, each equal
+    to its call without the UI, the kernel launches counted."""
+    from magnify_tpu_torch.plot.vis import InteractiveUI
+
+    with _Launches(by_path, "beads A interactive"):
+        xa = mt.beads(as_dataarray(mt, "A"), interactive=True, device=dev,
+                      **FRAME_A_KW)
+    _assert_same_frame("beads A interactive", xa, singles["A"])
+    with _Launches(by_path, "chip_c8 interactive"):
+        xc = mt.microfluidic_chip(as_dataarray(mt, "C8"), interactive=True,
+                                  device=dev, **FRAME_C8_KW)
+    _assert_same_frame("chip_c8 interactive", xc, singles["C8"])
+    img = frame_a()[0]
+    ui = InteractiveUI()
+    with _Launches(by_path, "find_circles gui"):
+        got = mt.ops.find_circles(img, *FIND_ARGS, gui=ui,
+                                  detector="dense", device=dev)
+    want = mt.ops.find_circles(img, *FIND_ARGS, detector="dense", device=dev)
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("find_circles(gui=InteractiveUI()) differs from "
+                             "gui=None")
+    _say(f"interactive phase (InteractiveUI().interactive = "
+         f"{ui.interactive}, {len(ui.sessions)} stages): beads A, chip C8 "
+         "and find_circles equal their calls without the UI")
+
+
 def main(argv) -> int:
     import torch
 
     if "--out-of-core" in argv:
         return out_of_core_child(
-            pathlib.Path(argv[argv.index("--out-of-core") + 1]))
+            pathlib.Path(argv[argv.index("--out-of-core") + 1]),
+            "--mesh" in argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2

@@ -77,8 +77,8 @@ from magnify_tpu_torch.core.lazy import alloc_output
 from magnify_tpu_torch.core.registry import components
 from magnify_tpu_torch.ops import detect as ops_detect
 from magnify_tpu_torch.ops import geom as ops_geom
-from magnify_tpu_torch.ops import gridfit, prng
-from magnify_tpu_torch.parallel.streaming import PinnedUploader
+from magnify_tpu_torch.ops import gridfit
+from magnify_tpu_torch.parallel.streaming import DevicePrefetcher, PinnedUploader
 
 __all__ = ["BeadFinder", "ButtonFinder", "MAX_RESIDENT_BYTES", "chip_fused",
            "cluster_1d", "label_clusters", "last_chip_timings",
@@ -116,15 +116,29 @@ def _progress(iterable, enabled):
         return iterable
 
 
-def _check_detector(detector: str, interactive: bool) -> None:
-    """"auto" (the dense detector), "dense" and "ransac" are ported; the
-    tuning UI is not."""
+def _check_detector(detector: str) -> None:
     if detector not in ("auto", "dense", "ransac"):
         raise ValueError(f"unknown detector {detector!r}")
-    if interactive:
-        raise NotImplementedError(
-            "the interactive tuning UI is not ported yet (ROADMAP "
-            "queue 1: plot)")
+
+
+def _tuning_ui(interactive: bool):
+    """The finder's tuning UI (``interactive=True``), else None."""
+    if not interactive:
+        return None
+    from magnify_tpu_torch.plot.vis import InteractiveUI
+
+    return InteractiveUI()
+
+
+def _ransac_kw(finder) -> dict:
+    """A finder's arguments of ``ops.detect.ransac_plane`` but the radii,
+    the NMS distance and ``normalized`` (the JAX package's finders draw
+    with seed 0)."""
+    return dict(low_q=float(finder.low_edge_quantile),
+                high_q=float(finder.high_edge_quantile),
+                min_roundness=float(finder.min_roundness),
+                grid_length=GRID_LENGTH, num_iter=int(finder.num_iter),
+                seed=0)
 
 
 def _channel_values(assay):
@@ -259,7 +273,7 @@ class BeadFinder:
     ):
         if min_bead_diameter > max_bead_diameter:
             raise ValueError("min_bead_diameter must be <= max_bead_diameter.")
-        _check_detector(detector, interactive)
+        _check_detector(detector)
         self.min_bead_radius = math.floor(min_bead_diameter / 2)
         self.max_bead_radius = math.ceil(max_bead_diameter / 2)
         self.low_edge_quantile = low_edge_quantile
@@ -271,12 +285,16 @@ class BeadFinder:
                            else 2 * max_bead_diameter)
         self.search_channels = utils.to_list(search_channel)
         self.device = torch.device(device)
+        self.gui = _tuning_ui(interactive)
 
     def __call__(self, assay):
         if _stack_bytes(assay) > MAX_RESIDENT_BYTES:
             return self._out_of_core(assay)
         image_np, planes = self._host_planes(assay)
-        beads = self.detect(planes)
+        if self.gui is not None:
+            beads = self._detect_each(planes)
+        else:
+            beads = self.detect(planes)
         return self._assemble(assay, image_np, beads)
 
     def _search_idxs(self, assay) -> list:
@@ -294,16 +312,46 @@ class BeadFinder:
 
     def _out_of_core(self, assay):
         """A stack above :data:`MAX_RESIDENT_BYTES`: each search plane read
-        and detected alone (the JAX package's
-        ``magnify_tpu/components/find.py:767-801``), then the ROI store
-        streamed by :meth:`_finish_streamed`."""
+        and normalized alone and detected alone (the JAX package's
+        ``magnify_tpu/components/find.py:767-801``) or, under a mesh with
+        the dense detector, the normalized search planes streamed onto the
+        mesh's bands (``parallel.streaming.DevicePrefetcher`` with the
+        mesh) and detected as one batch over it (``find.py:737-765``); then
+        the ROI store streamed by :meth:`_finish_streamed`."""
+        from magnify_tpu_torch.parallel import mesh as mesh_mod
+
+        def plane(ci):
+            return ops_detect.normalize_planes_u8(
+                assay.image.isel(time=0, channel=ci).to_numpy()[None])[0]
+
+        idxs = self._search_idxs(assay)
+        mesh = mesh_mod.sharded_mesh()
+        if (self.gui is None and mesh is not None
+                and ops_detect.resolve_detector(self.detector) == "dense"):
+            beads = self.detect_planes([bands for _ci, bands in
+                                        DevicePrefetcher(idxs, plane,
+                                                         mesh=mesh)])
+        else:
+            beads = self._detect_each(plane(ci) for ci in idxs)
+        return self._finish_streamed(assay, beads.astype(float))
+
+    def _detect_each(self, planes) -> np.ndarray:
+        """The JAX package's unfused detection: ``ops.detect.find_circles``
+        on each uint8 search plane (with the tuning UI where there is one),
+        a plane's circle within ``2 * min_radius`` of an earlier plane's
+        kept circle dropped on the host. Returns the (n, 3) int32 marks."""
         beads = np.empty((0, 3))
-        for ci in self._search_idxs(assay):
-            plane = assay.image.isel(time=0, channel=ci).to_numpy()
-            found = self.detect(ops_detect.normalize_planes_u8(plane[None]))
+        for plane in planes:
+            found = ops_detect.find_circles(
+                plane, float(self.low_edge_quantile),
+                float(self.high_edge_quantile), GRID_LENGTH,
+                int(self.num_iter), self.min_bead_radius,
+                self.max_bead_radius, float(self.min_roundness),
+                self.min_bead_radius, gui=self.gui, detector=self.detector,
+                device=self.device)[0]
             beads = _dedupe_host(beads, found.astype(float),
                                  2 * self.min_bead_radius)
-        return self._finish_streamed(assay, beads)
+        return np.round(beads).astype(np.int32).reshape(-1, 3)
 
     def _finish_streamed(self, assay, beads):
         """Output allocation, ownership masks and ROI crops of an
@@ -400,39 +448,52 @@ class BeadFinder:
     def detect(self, planes: np.ndarray) -> np.ndarray:
         """Detection on uint8 search planes (S, H, W): the (n, 3) int32
         (row, col, radius) marks, channel-major, best first."""
-        return self.detect_planes(torch.as_tensor(planes).to(self.device))
+        from magnify_tpu_torch.parallel import mesh as mesh_mod
 
-    def detect_planes(self, planes_dev: torch.Tensor) -> np.ndarray:
-        """:meth:`detect` on planes that already lie on ``self.device``.
+        if mesh_mod.sharded_mesh() is None:
+            planes = torch.as_tensor(planes).to(self.device)
+        return self.detect_planes(planes)
+
+    def detect_planes(self, planes_dev) -> np.ndarray:
+        """:meth:`detect` on planes that already lie on ``self.device`` (or,
+        under a mesh, anywhere: they are cut into the mesh's bands, unless
+        the stream has cut them, a list of ``parallel.mesh.PlaneBands``).
         Launches on the calling thread's current stream and waits for the
-        marks."""
+        marks. Dense detection under an active mesh of more than one device
+        runs over its (batch = channels, space = rows) bands (the JAX
+        package's ``_bead_detect_packed_mesh``); the cross-channel dedupe
+        then runs on ``self.device``."""
+        from magnify_tpu_torch.parallel import mesh as mesh_mod
+
         if ops_detect.resolve_detector(self.detector) == "ransac":
-            return self._detect_ransac(planes_dev)
-        blocks = []
-        for plane in planes_dev:
-            circles, _scores = ops_detect.detect_dense(
-                plane, float(self.low_edge_quantile),
-                float(self.high_edge_quantile), float(self.min_roundness),
-                min_radius=self.min_bead_radius,
-                max_radius=self.max_bead_radius,
-                min_dist=self.min_bead_radius)
-            blocks.append(circles)
+            return self._detect_ransac(torch.as_tensor(planes_dev))
+        args = (float(self.low_edge_quantile), float(self.high_edge_quantile),
+                float(self.min_roundness))
+        kw = dict(min_radius=self.min_bead_radius,
+                  max_radius=self.max_bead_radius,
+                  min_dist=self.min_bead_radius)
+        mesh = mesh_mod.sharded_mesh()
+        if mesh is not None:
+            blocks = [c.to(self.device) for c, _s in
+                      mesh_mod.sharded_find_circles_batch(
+                          planes_dev, mesh, *args, normalized=True, **kw)]
+        else:
+            blocks = [ops_detect.detect_dense(plane, *args, **kw)[0]
+                      for plane in planes_dev]
         beads = _cross_channel_dedupe(blocks, 2.0 * self.min_bead_radius)
         return beads.cpu().numpy().astype(np.int32).reshape(-1, 3)
 
     def _detect_ransac(self, planes_dev: torch.Tensor) -> np.ndarray:
-        """RANSAC per search channel, then the JAX package's unfused
-        cross-channel dedupe on the host (:func:`_dedupe_host`)."""
+        """RANSAC per search channel (over the active mesh where it
+        applies), then the JAX package's unfused cross-channel dedupe on
+        the host (:func:`_dedupe_host`)."""
         beads = np.empty((0, 3))
         for plane in planes_dev:
-            circles, _scores, _n = ops_detect.detect_ransac(
-                plane, float(self.low_edge_quantile),
-                float(self.high_edge_quantile), float(self.min_roundness),
-                grid_length=GRID_LENGTH, num_iter=int(self.num_iter),
+            circles, _scores, _n = ops_detect.ransac_plane(
+                plane.to(self.device), **_ransac_kw(self),
                 min_radius=self.min_bead_radius,
                 max_radius=self.max_bead_radius,
-                min_dist=self.min_bead_radius,
-                key=prng.prng_key(0, plane.device), normalized=True)
+                min_dist=self.min_bead_radius, normalized=True)
             beads = _dedupe_host(beads, circles.cpu().numpy().astype(float),
                                  2 * self.min_bead_radius)
         return np.round(beads).astype(np.int32).reshape(-1, 3)
@@ -507,7 +568,8 @@ class BeadFinder:
         if depth < 1 or pull_batch < 1:
             raise ValueError("stream_depth and stream_pull_batch must be "
                              f">= 1 (got {depth}, {pull_batch})")
-        if ops_detect.resolve_detector(self.detector) == "ransac":
+        if (self.gui is not None
+                or ops_detect.resolve_detector(self.detector) == "ransac"):
             yield from self._serial_stream(inputs, reader, pre, post)
             return
         on_card = self.device.type == "cuda"
@@ -719,10 +781,33 @@ def _grid_stage(circles, penalty, ppr, ppc, *, h, w, num_rows, num_cols,
     return mark_x, mark_y, row_slope, col_slope, row_counts, col_counts
 
 
+def _refine_on_mesh(planes, xs, ys, low_q, high_q, min_roundness, mesh, *,
+                    roi_length, min_radius, max_radius):
+    """:func:`_refine_chambers` with the chambers split over every device
+    of ``mesh`` (the JAX package's ``_chip_mesh_finisher``): contiguous
+    chunks, one a mesh device
+    (:func:`magnify_tpu_torch.parallel.mesh.chunks_by_device`); the chunks
+    of one device refined in one batch on a copy of the planes there.
+    Results on the planes' device."""
+    from magnify_tpu_torch.parallel import mesh as mesh_mod
+
+    n = xs.shape[0]
+    circle = torch.zeros((n, 3), dtype=torch.int32, device=planes.device)
+    score = torch.zeros(n, dtype=torch.float32, device=planes.device)
+    for dev, idx in mesh_mod.chunks_by_device(mesh, n):
+        c, sc = _refine_chambers(
+            planes.to(dev), xs[idx].to(dev), ys[idx].to(dev), low_q, high_q,
+            min_roundness, roi_length=roi_length, min_radius=min_radius,
+            max_radius=max_radius)
+        circle[idx.to(planes.device)] = c.to(planes.device)
+        score[idx.to(planes.device)] = sc.to(planes.device)
+    return circle, score
+
+
 def chip_fused(planes, low_q, high_q, high_q_roi, min_roundness, penalty,
                ppr, ppc, *, num_rows, num_cols, row_dist, col_dist,
                top_chamber, left_chamber, chamber_radius, min_radius,
-               max_radius, roi_length, normalized=True):
+               max_radius, roi_length, normalized=True, mesh=None):
     """A whole chip timestep on the device of ``planes``.
 
     ``planes`` (S, H, W) holds the search channels only, quantized on the
@@ -735,25 +820,38 @@ def chip_fused(planes, low_q, high_q, high_q_roi, min_roundness, penalty,
     chamber's crop, ``score`` (R*C,), ``mark_x``/``mark_y`` (R*C,) the grid
     intersections, ``n_centers``, ``row_slope``, ``col_slope``,
     ``row_counts`` (R,), ``col_counts`` (C,).
+
+    With a ``mesh`` (the JAX package's ``_chip_fused_packed_mesh``) the
+    detection runs over its (batch = channels, space = rows) bands and the
+    chamber refinement over all its devices (:func:`_refine_on_mesh`); the
+    dedupe and the grid stage stay on the device of ``planes``.
     """
     h, w = planes.shape[-2:]
-    blocks = []
-    for plane in planes:
-        circles, _scores = ops_detect.detect_dense(
-            plane, low_q, high_q, min_roundness, min_radius=min_radius,
-            max_radius=max_radius, min_dist=int(chamber_radius),
-            normalized=normalized)
-        blocks.append(circles)
+    kw = dict(min_radius=min_radius, max_radius=max_radius,
+              min_dist=int(chamber_radius))
+    if mesh is not None:
+        from magnify_tpu_torch.parallel import mesh as mesh_mod
+
+        blocks = [c.to(planes.device) for c, _s in
+                  mesh_mod.sharded_find_circles_batch(
+                      planes, mesh, low_q, high_q, min_roundness,
+                      normalized=normalized, **kw)]
+    else:
+        blocks = [ops_detect.detect_dense(plane, low_q, high_q, min_roundness,
+                                          normalized=normalized, **kw)[0]
+                  for plane in planes]
     centers = _cross_channel_dedupe(blocks, float(chamber_radius))
     mark_x, mark_y, row_slope, col_slope, row_counts, col_counts = \
         _grid_stage(centers, penalty, ppr, ppc, h=h, w=w, num_rows=num_rows,
                     num_cols=num_cols, row_dist=row_dist, col_dist=col_dist,
                     top_chamber=top_chamber, left_chamber=left_chamber,
                     chamber_radius=chamber_radius)
-    circle, score = _refine_chambers(
-        planes, mark_x.reshape(-1), mark_y.reshape(-1), low_q, high_q_roi,
-        min_roundness, roi_length=roi_length, min_radius=min_radius,
-        max_radius=max_radius)
+    args = (planes, mark_x.reshape(-1), mark_y.reshape(-1), low_q,
+            high_q_roi, min_roundness)
+    kw = dict(roi_length=roi_length, min_radius=min_radius,
+              max_radius=max_radius)
+    circle, score = (_refine_chambers(*args, **kw) if mesh is None
+                     else _refine_on_mesh(*args, mesh, **kw))
     return dict(circle=circle, score=score, mark_x=mark_x.reshape(-1),
                 mark_y=mark_y.reshape(-1), n_centers=centers.shape[0],
                 row_slope=row_slope, col_slope=col_slope,
@@ -818,7 +916,7 @@ class ButtonFinder:
     ):
         if min_button_diameter > max_button_diameter:
             raise ValueError("min_button_diameter must be <= max_button_diameter.")
-        _check_detector(detector, interactive)
+        _check_detector(detector)
         self.row_dist = row_dist
         self.col_dist = col_dist
         self.min_button_radius = math.floor(min_button_diameter / 2)
@@ -838,6 +936,7 @@ class ButtonFinder:
         self.search_timesteps = sorted(utils.to_list(search_timestep))
         self.search_channels = utils.to_list(search_channel)
         self.device = torch.device(device)
+        self.gui = _tuning_ui(interactive)
 
     def __call__(self, assay):
         search_channels = self.search_channels or _channel_values(assay)
@@ -857,9 +956,14 @@ class ButtonFinder:
         tag = assay["tag"].to_numpy()
 
         search_idxs = [_channel_index(assay, c) for c in search_channels]
+        # The fused timestep runs the dense detector without the tuning UI;
+        # with it (or RANSAC) find_centers and find_rois run, as in the JAX
+        # package.
+        fused = (self.gui is None
+                 and ops_detect.resolve_detector(self.detector) != "ransac")
         for t in _progress(self.search_timesteps, self.progress_bar):
             images = assay.image.isel(time=t).to_numpy()  # (channel, H, W)
-            if ops_detect.resolve_detector(self.detector) != "ransac":
+            if fused:
                 (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
                  y[..., t], valid[..., t]) = self._fused_timestep(
                     images, tag, valid[..., t], search_idxs)
@@ -922,13 +1026,16 @@ class ButtonFinder:
         return assay
 
     def _fused_timestep(self, images_np, tag, valid_t, search_idxs):
-        """One chip timestep: :func:`chip_fused` on ``self.device``, then
-        host crops at the refined centers plus the fg/bg rasters. Only the
-        search planes go to the device, quantized on the host to uint8
-        (exactly the device's own normalization) or, where rare outliers
-        compress the useful range, to uint16
+        """One chip timestep: :func:`chip_fused` on ``self.device`` (over
+        the active mesh, if it has more than one device), then host crops at
+        the refined centers plus the fg/bg rasters. Only the search planes
+        go to the device, quantized on the host to uint8 (exactly the
+        device's own normalization) or, where rare outliers compress the
+        useful range, to uint16
         (:func:`magnify_tpu_torch.ops.detect.choose_upload_precision`); the
         other channels' ROI crops are host slices."""
+        from magnify_tpu_torch.parallel import mesh as mesh_mod
+
         num_rows, num_cols = tag.shape
         L = self.roi_length
         h, w = images_np.shape[-2:]
@@ -972,7 +1079,7 @@ class ButtonFinder:
             chamber_radius=int(self.chamber_radius),
             min_radius=self.min_button_radius,
             max_radius=self.max_button_radius, roi_length=L,
-            normalized=normalized)
+            normalized=normalized, mesh=mesh_mod.sharded_mesh())
         circle = out["circle"].cpu().numpy()
         score = out["score"].cpu().numpy()
         mark_x = out["mark_x"].cpu().numpy()
@@ -991,10 +1098,32 @@ class ButtonFinder:
                     "unlikely to be segmented correctly", edge, int(cnt),
                 )
 
-        # The device's f32 rounding of the crop corners: the detected
-        # circles are relative to them.
+        placed = self._place_chambers(images_np, tag, circle, score, mark_x,
+                                      mark_y, mark_x, mark_y)
+        last_chip_timings.clear()
+        last_chip_timings.update(
+            upload_bytes=int(planes_q.nbytes),
+            upload_precision=precision,
+            normalize_upload_s=round(t1 - t0, 6),
+            dispatch_pull_s=round(t2 - t1, 6),
+            host_crops_masks_s=round(time.perf_counter() - t2, 6),
+        )
+        return placed + (valid_t,)
+
+    def _place_chambers(self, images_np, tag, circle, score, crop_x, crop_y,
+                        mark_x, mark_y):
+        """The chambers' outputs from the refinement's ``circle`` (n, 3)
+        (relative to the crops cut at ``crop_y``/``crop_x``, as the device
+        rounded those f32 centers) and ``score`` (n,): a refined chamber
+        moves to its circle, the others keep ``mark_x``/``mark_y``; the ROIs
+        are cropped from ``images_np`` at the final centers and the fg disk
+        and bg annulus rasterized. Returns (roi, fg, bg, x, y) by (row,
+        col)."""
+        num_rows, num_cols = tag.shape
+        L = self.roi_length
+        n_ch, h, w = images_np.shape[0], *images_np.shape[-2:]
         tops, lefts = (a.numpy().astype(np.int32) for a in _roi_corners(
-            torch.as_tensor(mark_y), torch.as_tensor(mark_x), L, h, w))
+            torch.as_tensor(crop_y), torch.as_tensor(crop_x), L, h, w))
         with np.errstate(invalid="ignore"):
             refined = np.isfinite(score) & (tag.reshape(-1) != "")
             new_y = np.where(refined, circle[:, 0] + tops, mark_y)
@@ -1014,27 +1143,19 @@ class ButtonFinder:
         fg_h = utils.disk_masks((L, L), centers_rel, radius)
         bg_h = utils.annulus_masks((L, L), centers_rel, self.chamber_radius,
                                    self.max_button_radius)
-        n_ch = images_np.shape[0]
-        last_chip_timings.clear()
-        last_chip_timings.update(
-            upload_bytes=int(planes_q.nbytes),
-            upload_precision=precision,
-            normalize_upload_s=round(t1 - t0, 6),
-            dispatch_pull_s=round(t2 - t1, 6),
-            host_crops_masks_s=round(time.perf_counter() - t2, 6),
-        )
         return (
             crops.reshape(num_rows, num_cols, n_ch, L, L),
             fg_h.reshape(num_rows, num_cols, L, L),
             bg_h.reshape(num_rows, num_cols, L, L),
             new_x.astype(float).reshape(num_rows, num_cols),
             new_y.astype(float).reshape(num_rows, num_cols),
-            valid_t,
         )
 
     def find_centers(self, images_dev, search_idxs, tag):
-        """Grid-constrained chamber centers by RANSAC
-        (``ButtonFinder.find_centers``, its non-dense branch).
+        """Grid-constrained chamber centers (``ButtonFinder.find_centers``,
+        its unfused branch): RANSAC (over the active mesh where it applies),
+        or with the tuning UI ``ops.detect.find_circles`` with it, with
+        either detector.
 
         Each search plane of ``images_dev`` (C, H, W) (raw values, f32) is
         normalized and searched on the device; a channel's circle within
@@ -1048,16 +1169,23 @@ class ButtonFinder:
         points = np.empty((0, 2))
         n_unique = []
         for ci in search_idxs:
-            circles, _scores, n_u = ops_detect.detect_ransac(
-                images_dev[ci], float(self.low_edge_quantile),
-                float(self.high_edge_quantile), float(self.min_roundness),
-                grid_length=GRID_LENGTH, num_iter=int(self.num_iter),
-                min_radius=self.min_button_radius,
-                max_radius=self.max_button_radius,
-                min_dist=int(min_button_dist),
-                key=prng.prng_key(0, images_dev.device), normalized=False)
-            n_unique.append(n_u)
-            found = circles[:, :2].cpu().numpy().astype(float)
+            if self.gui is not None:
+                found = ops_detect.find_circles(
+                    images_dev[ci], float(self.low_edge_quantile),
+                    float(self.high_edge_quantile), GRID_LENGTH,
+                    int(self.num_iter), self.min_button_radius,
+                    self.max_button_radius, float(self.min_roundness),
+                    int(min_button_dist), gui=self.gui,
+                    detector=self.detector,
+                    device=images_dev.device)[0][:, :2].astype(float)
+            else:
+                circles, _scores, n_u = ops_detect.ransac_plane(
+                    images_dev[ci], **_ransac_kw(self),
+                    min_radius=self.min_button_radius,
+                    max_radius=self.max_button_radius,
+                    min_dist=int(min_button_dist), normalized=False)
+                n_unique.append(n_u)
+                found = circles[:, :2].cpu().numpy().astype(float)
             if len(points) > 0 and len(found) > 0:
                 dists = np.linalg.norm(points[None] - found[:, None], axis=2)
                 found = found[np.min(dists, axis=1) > min_button_dist]
@@ -1108,8 +1236,10 @@ class ButtonFinder:
 
     def find_rois(self, images_np, images_dev, tag, x, y, valid,
                   search_idxs):
-        """Per-chamber refinement by RANSAC (``ButtonFinder.find_rois``, its
-        non-dense branch).
+        """Per-chamber refinement (``ButtonFinder.find_rois``): with the
+        dense detector (the tuning UI's path) one dense re-detection batch
+        over every chamber, as in the fused timestep; otherwise by RANSAC,
+        as follows.
 
         Every chamber is cropped at its grid center (``images_dev``, the
         timestep's (C, H, W) f32 planes) and each search channel's crops go
@@ -1127,13 +1257,28 @@ class ButtonFinder:
         h, w = images_np.shape[-2:]
         xs = x.reshape(-1)
         ys = y.reshape(-1)
+        high_q = 1 - np.pi * self.min_button_radius / L**2
+        if ops_detect.resolve_detector(self.detector) == "dense":
+            # The JAX package's _chip_detect_dense: every chamber cropped
+            # from the raw search planes at its f32 center and refined.
+            dev = images_dev.device
+            xs32 = torch.as_tensor(xs.astype(np.float32))
+            ys32 = torch.as_tensor(ys.astype(np.float32))
+            circle, score = _refine_chambers(
+                images_dev[search_idxs], xs32.to(dev), ys32.to(dev),
+                float(self.low_edge_quantile), float(high_q),
+                float(self.min_roundness), roi_length=L,
+                min_radius=self.min_button_radius,
+                max_radius=self.max_button_radius)
+            return self._place_chambers(
+                images_np, tag, circle.cpu().numpy(), score.cpu().numpy(),
+                xs32, ys32, xs, ys) + (valid,)
 
         tops, lefts = _roi_windows(xs, ys, L, h, w)
         crops_dev = ops_geom.extract_rois(
             images_dev, torch.as_tensor(tops, device=images_dev.device),
             torch.as_tensor(lefts, device=images_dev.device), L)
         roi_iter = max(int(self.num_iter) // n, 1)
-        high_q = 1 - np.pi * self.min_button_radius / L**2
         best_score = np.full(n, -np.inf)
         best_circle = np.zeros((n, 3), np.int32)
         for ci in search_idxs:

@@ -54,7 +54,8 @@ __all__ = ["choose_upload_precision", "dense_candidates",
            "detect_best_in_rois", "detect_dense", "detect_ransac",
            "detect_rois_dense", "detect_rois_ransac",
            "find_circles", "find_circles_stack", "normalize_planes_u16",
-           "normalize_planes_u8", "resolve_detector", "use_conv_scorer"]
+           "normalize_planes_u8", "ransac_plane", "resolve_detector",
+           "select_ransac", "use_conv_scorer"]
 
 #: The JAX package's per-ROI unique cap (``detect_best_in_rois``).
 ROI_UNIQUE_CAP = 4096
@@ -281,16 +282,55 @@ def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
     uniq, n_unique = dedupe_circles(
         cands, any_edges, height=h, width=w, min_radius=min_radius,
         max_radius=max_radius)
+    circles, scores = select_ransac(
+        edges, dx, dy, angles[0] if angles else None, uniq, min_roundness,
+        min_radius=min_radius, max_radius=max_radius, min_dist=min_dist)
+    return circles, scores, n_unique
+
+
+def ransac_plane(image: torch.Tensor, low_q: float, high_q: float,
+                 min_roundness: float, *, grid_length: int, num_iter: int,
+                 min_radius: int, max_radius: int, min_dist: int, seed: int,
+                 normalized: bool):
+    """RANSAC on one plane (H, W) with the proposals of ``seed``, wherever
+    the caller is: under an active mesh of more than one device
+    (:func:`magnify_tpu_torch.parallel.use_mesh`) the proposals split over
+    its devices where the plane's dedupe raster allows it (the JAX
+    package's rule, :func:`magnify_tpu_torch.parallel.mesh.
+    ransac_fits_mesh`), else :func:`detect_ransac` on the plane's device.
+    The result is the same: (circles, scores, n_unique)."""
+    from magnify_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.sharded_mesh()
+    kw = dict(grid_length=grid_length, num_iter=num_iter,
+              min_radius=min_radius, max_radius=max_radius,
+              min_dist=min_dist, normalized=normalized)
+    if mesh is not None and mesh_mod.ransac_fits_mesh(
+            *image.shape, min_radius, max_radius):
+        return mesh_mod.ransac_on_mesh(image, mesh, low_q, high_q,
+                                       min_roundness, seed=seed, **kw)
+    return detect_ransac(image, low_q, high_q, min_roundness,
+                         key=prng.prng_key(seed, image.device), **kw)
+
+
+def select_ransac(edges, dx, dy, grad_angles, uniq, min_roundness: float, *,
+                  min_radius: int, max_radius: int, min_dist: int):
+    """The tail of :func:`detect_ransac`: score the unique proposals
+    ``uniq`` (n, 3) of one plane (with the perimeter scorer on
+    ``grad_angles``, or where those are None out of the int8 score maps),
+    keep those at or above ``min_roundness`` in (-score, unique-index)
+    order, and run greedy NMS. Returns the accepted (circles, scores)."""
+    h, w = edges.shape
     pad = 2 * max_radius
     shift = torch.tensor([pad, pad, 0], dtype=torch.int32,
                          device=uniq.device)
-    if conv:
+    if grad_angles is None:
         maps = _padded_maps(edges, dx, dy, min_radius, max_radius)
         live = torch.ones(uniq.shape[0], dtype=torch.bool, device=uniq.device)
         scores = gather_map_scores(maps, uniq + shift, live,
                                    min_radius=min_radius)
     else:
-        scores = score_circles(angles[0], edges, uniq + shift,
+        scores = score_circles(grad_angles, edges, uniq + shift,
                                max_radius=max_radius, pad=pad)
     thresh = torch.tensor(np.float32(min_roundness), device=scores.device)
     lin = torch.nonzero(scores >= thresh).reshape(-1)  # unique-index order
@@ -300,7 +340,7 @@ def detect_ransac(image: torch.Tensor, low_q: float, high_q: float,
     accepted = parallel_greedy_nms(
         circles, torch.isfinite(scores), min_dist=min_dist, height=h,
         width=w, max_radius=max_radius)
-    return circles[accepted], scores[accepted], n_unique
+    return circles[accepted], scores[accepted]
 
 
 def detect_rois_ransac(rois: torch.Tensor, low_q: float, high_q: float,
@@ -424,28 +464,48 @@ def find_circles(image, low_edge_quantile: float, high_edge_quantile: float,
     (none when it is 0). The detector (:func:`resolve_detector`) is dense,
     or RANSAC with ``num_iter`` proposals in cells of ``grid_length`` from
     the threefry key of ``seed``, scored as :func:`use_conv_scorer` says.
-    ``gui`` (the interactive tuning UI) is not ported and raises.
+    With ``gui`` (a :class:`magnify_tpu_torch.plot.vis.InteractiveUI`) the
+    parameters are tuned in its two stages (edge quantiles, circle
+    filters) first; headless, each stage runs once with these values and
+    the result is this call's without ``gui``.
+
+    Under an active mesh of more than one device
+    (:func:`magnify_tpu_torch.parallel.use_mesh`) detection shards over it:
+    dense detection over its (batch, space) bands, RANSAC's proposals over
+    its devices where the plane's dedupe raster is within
+    ``RASTER_KEY_LIMIT`` keys (the JAX package's rule); the result is the
+    same.
     """
     if gui is not None:
-        raise NotImplementedError(
-            "find_circles: the interactive tuning UI is not ported yet "
-            "(ROADMAP queue 1, item 9: plot)")
+        from magnify_tpu_torch.plot.vis import interactive_find_circles
+
+        return interactive_find_circles(
+            image, gui, low_edge_quantile=low_edge_quantile,
+            high_edge_quantile=high_edge_quantile, grid_length=grid_length,
+            num_iter=num_iter, min_radius=min_radius, max_radius=max_radius,
+            min_roundness=min_roundness, min_dist=min_dist, seed=seed,
+            detector=detector, device=device)
+    from magnify_tpu_torch.parallel import mesh as mesh_mod
+
+    dense = resolve_detector(detector) == "dense"
     if isinstance(image, np.ndarray):
         image = torch.from_numpy(np.ascontiguousarray(image,
                                                       dtype=np.float32))
-    image = image.to(device)
     args = (float(low_edge_quantile), float(high_edge_quantile),
             float(min_roundness))
-    if resolve_detector(detector) == "dense":
-        return _to_host(*detect_dense(
-            image, *args, min_radius=int(min_radius),
-            max_radius=int(max_radius), min_dist=int(min_dist),
-            normalized=False))
-    circles, scores, _n = detect_ransac(
+    kw = dict(min_radius=int(min_radius), max_radius=int(max_radius),
+              min_dist=int(min_dist), normalized=False)
+    mesh = mesh_mod.sharded_mesh()
+    if dense and mesh is not None:
+        return mesh_mod.sharded_find_circles(
+            image, mesh, low_edge_quantile, high_edge_quantile, min_radius,
+            max_radius, min_roundness, min_dist)
+    image = image.to(device)
+    if dense:
+        return _to_host(*detect_dense(image, *args, **kw))
+    circles, scores, _n = ransac_plane(
         image, *args, grid_length=int(grid_length), num_iter=int(num_iter),
-        min_radius=int(min_radius), max_radius=int(max_radius),
-        min_dist=int(min_dist), key=prng.prng_key(int(seed), image.device),
-        normalized=False)
+        seed=int(seed), **kw)
     return _to_host(circles, scores)
 
 
@@ -463,12 +523,24 @@ def find_circles_stack(images, low_edge_quantile: float,
     :func:`detect_dense`, as :func:`find_circles` detects it densely.
     Returns a list of (circles, scores) per plane. ``nms_cap`` and
     ``pull_cap`` size the JAX package's static buffers; here the survivors
-    are taken whole, so they are validated and change nothing.
+    are taken whole, so they are validated and change nothing. Under an
+    active mesh of more than one device the whole stack shards over it
+    (:func:`magnify_tpu_torch.parallel.mesh.
+    sharded_find_circles_batch_packed`), with the same result.
     """
     if min(int(nms_cap), int(pull_cap), int(batch)) < 1:
         raise ValueError("find_circles_stack: nms_cap, batch and pull_cap "
                          "must be >= 1")
     planes = normalize_planes_u8(np.ascontiguousarray(images))
+    from magnify_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh = mesh_mod.sharded_mesh()
+    if mesh is not None:
+        return mesh_mod.sharded_find_circles_batch_packed(
+            planes, mesh, float(low_edge_quantile),
+            float(high_edge_quantile), float(min_roundness),
+            min_radius=int(min_radius), max_radius=int(max_radius),
+            min_dist=int(min_dist))
     results = []
     for start in range(0, planes.shape[0], int(batch)):
         chunk = torch.from_numpy(planes[start:start + int(batch)]).to(device)

@@ -109,10 +109,11 @@ def hysteresis(strong: torch.Tensor, weak: torch.Tensor,
     weak_u8 = weak.contiguous().view(torch.uint8)
     labels = torch.empty(strong.shape, dtype=torch.int32,
                          device=strong.device)
-    err = _build.load().mg_hysteresis(
-        strong_u8.data_ptr(), weak_u8.data_ptr(), n_planes, h, w, tile_rows,
-        labels.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(strong.device).cuda_stream)
+    with torch.cuda.device(strong.device):  # the launch goes to its card
+        err = _build.load().mg_hysteresis(
+            strong_u8.data_ptr(), weak_u8.data_ptr(), n_planes, h, w,
+            tile_rows, labels.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(strong.device).cuda_stream)
     launches += LAUNCHES_PER_CALL
     if strong.ndim == 3:
         batched_launches += LAUNCHES_PER_CALL

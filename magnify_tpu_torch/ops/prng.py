@@ -66,13 +66,21 @@ def prng_key(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, seed & _MASK], dtype=torch.int64, device=device)
 
 
-def _counters(n: int, device) -> torch.Tensor:
+def _counters(n, device) -> torch.Tensor:
+    """The counters ``0 .. n - 1`` of an int ``n``, or ``n`` itself: a 1-D
+    int64 tensor of counters, a slice of a longer stream (each draw depends
+    on its counter alone, so ``n[k]`` draws what draw ``n[k]`` of the whole
+    stream draws). The caller keeps tensor counters below 2^32."""
+    if isinstance(n, torch.Tensor):
+        if n.ndim != 1 or n.dtype != torch.int64:
+            raise TypeError("counters must be a 1-D int64 tensor")
+        return n.to(device)
     if n >= 2**32:
         raise ValueError(f"{n} draws exceed the 32-bit counter")
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
-def _hash_counters(key: torch.Tensor, n: int):
+def _hash_counters(key: torch.Tensor, n):
     lo = _counters(n, key.device)
     return threefry2x32(key[..., 0:1], key[..., 1:2], torch.zeros_like(lo),
                         lo)
@@ -84,17 +92,20 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     return torch.stack([a, b], dim=-1)
 
 
-def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
-    """(..., n) uint32 words of ``jax.random.bits(key, (n,))`` (as int64)."""
+def random_bits(key: torch.Tensor, n) -> torch.Tensor:
+    """(..., n) uint32 words of ``jax.random.bits(key, (n,))`` (as int64).
+    ``n`` may also be a 1-D int64 tensor of counters (:func:`_counters`):
+    the words of those draws of the stream."""
     a, b = _hash_counters(key, n)
     return a ^ b
 
 
-def randint(key: torch.Tensor, n: int, minval, maxval) -> torch.Tensor:
+def randint(key: torch.Tensor, n, minval, maxval) -> torch.Tensor:
     """``jax.random.randint(key, (n,), minval, maxval)`` for int32 bounds
     (python ints or int tensors that broadcast against (..., 1)): (..., n)
     int32 in ``[minval, maxval)``, or ``minval`` where ``maxval <=
-    minval``."""
+    minval``. ``n`` may be a tensor of counters, as for
+    :func:`random_bits`."""
     dev = key.device
     minval = torch.as_tensor(minval, dtype=torch.int64, device=dev)
     maxval = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
@@ -110,8 +121,8 @@ def randint(key: torch.Tensor, n: int, minval, maxval) -> torch.Tensor:
     return (minval + off).to(torch.int32)
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+def uniform(key: torch.Tensor, n) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32)``: (..., n) f32 in [0,
-    1)."""
+    1). ``n`` may be a tensor of counters, as for :func:`random_bits`."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0

@@ -31,7 +31,7 @@ __all__ = ["candidate_circles"]
 
 
 def candidate_circles(edges: torch.Tensor, grid_length: int, num_iter: int,
-                      key: torch.Tensor):
+                      key: torch.Tensor, start=None, count: int | None = None):
     """Propose ``num_iter`` circles from an edge mask.
 
     ``edges``: (H, W) bool with ``key`` (2,), or a batch (N, H, W) with one
@@ -40,7 +40,24 @@ def candidate_circles(edges: torch.Tensor, grid_length: int, num_iter: int,
     three f32 tensors (num_iter,) (or (N, num_iter)) and a bool that is
     False for a plane without edge pixels, whose proposals are then
     meaningless (every sample is pixel 0) and must be dropped.
+
+    ``start`` and ``count`` take slices of the ``num_iter`` proposals
+    instead: proposals ``start .. start + count - 1``, each exactly the
+    proposal of that index in the whole run (the streams are counter
+    based). ``start`` may be a 1-D int64 tensor of slice starts; the
+    slices then come one after another, ``len(start) * count`` proposals
+    (the mesh detector's slices of one device in one call).
     """
+    draws = num_iter
+    if start is not None:
+        starts = torch.as_tensor(start, dtype=torch.int64).reshape(-1)
+        if count is None or count < 0:
+            raise ValueError("a slice of the proposals needs its count")
+        if starts.numel() and (int(starts.min()) < 0
+                               or int(starts.max()) + count > num_iter):
+            raise ValueError(f"proposal slices of {count} at "
+                             f"{starts.tolist()} leave 0..{num_iter}")
+        draws = (starts[:, None] + torch.arange(count)).reshape(-1)
     batched = edges.ndim == 3
     if not batched:
         edges, key = edges[None], key[None]
@@ -77,7 +94,7 @@ def candidate_circles(edges: torch.Tensor, grid_length: int, num_iter: int,
     counts = torch.clamp(counts, min=1)
 
     keys = prng.split(key, 3)  # (N, 3, 2)
-    u0 = prng.randint(keys[:, 0], num_iter, 0,
+    u0 = prng.randint(keys[:, 0], draws, 0,
                       torch.clamp(totals, min=1)[:, None])
 
     def pixel(slot):
@@ -93,7 +110,7 @@ def candidate_circles(edges: torch.Tensor, grid_length: int, num_iter: int,
     cf = c_counts.to(torch.float32)
 
     def neighbour(k):
-        u = prng.uniform(keys[:, k], num_iter)
+        u = prng.uniform(keys[:, k], draws)
         off = torch.minimum((u * cf).to(torch.int64), c_counts - 1)
         p = pixel(c_starts + off)
         return ((p // w - p0r).to(torch.float32),

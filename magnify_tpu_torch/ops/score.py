@@ -37,7 +37,8 @@ import torch.nn.functional as F
 from magnify_tpu_torch import _build, utils
 from magnify_tpu_torch.ops.edge import fma_f32
 
-__all__ = ["RingWeights", "dedupe_circles", "gather_map_scores",
+__all__ = ["RASTER_KEY_LIMIT", "RingWeights", "circle_keys", "decode_keys",
+           "dedupe_circles", "gather_map_scores",
            "perimeter_plan", "perimeter_score", "raster_key_space", "ring_corr",
            "ring_corr_plain", "ring_weights", "score_circles",
            "score_circles_plain", "score_maps", "spread_lanes", "sum_form"]
@@ -248,10 +249,11 @@ def ring_corr(feats: torch.Tensor, weights: RingWeights) -> torch.Tensor:
     if n * ((w + 63) // 64) >= 2**31 or (h + 31) // 32 > 65535:
         raise ValueError(f"ring_corr: {n} planes of {h}x{w} exceed the "
                          "launch grid")
-    err = lib.mg_ring_corr(
-        feats.data_ptr(), n, h, w, table.data_ptr(), offsets.data_ptr(), n_r,
-        n_pos, rad, out.data_ptr(),
-        torch.cuda.current_stream(feats.device).cuda_stream)
+    with torch.cuda.device(feats.device):  # the launch goes to its card
+        err = lib.mg_ring_corr(
+            feats.data_ptr(), n, h, w, table.data_ptr(), offsets.data_ptr(),
+            n_r, n_pos, rad, out.data_ptr(),
+            torch.cuda.current_stream(feats.device).cuda_stream)
     launches += 1
     batched_launches += int(batched)
     _build.check(err, "mg_ring_corr")
@@ -339,6 +341,12 @@ def gather_map_scores(maps, circles, valid, *, min_radius: int):
 # RANSAC: unique-triple dedupe and the exact perimeter scorer
 # ---------------------------------------------------------------------------
 
+#: The JAX package dedupes proposals on a presence raster of this many keys
+#: at most; above it its mesh detector refuses a plane (the port's dedupe
+#: needs no raster and keeps the limit only there).
+RASTER_KEY_LIMIT = 1 << 28
+
+
 def raster_key_space(height: int, width: int, min_radius: int,
                      max_radius: int) -> int:
     """Number of (row, col, radius) dedupe keys: rows and columns within
@@ -385,6 +393,12 @@ def dedupe_circles(circles, valid, *, height: int, width: int,
     ``cap`` is required for a batch; one plane keeps every unique (the JAX
     package grows its cap until they fit).
     """
+    batched = circles[0].ndim == 2
+    if not batched:
+        uk = circle_keys(circles, valid, height=height, width=width,
+                         min_radius=min_radius, max_radius=max_radius)
+        return decode_keys(uk, width=width, min_radius=min_radius,
+                           max_radius=max_radius), int(uk.numel())
     row, col, rad, ok = _round_filter(
         circles, valid, height=height, width=width, min_radius=min_radius,
         max_radius=max_radius)
@@ -393,12 +407,6 @@ def dedupe_circles(circles, valid, *, height: int, width: int,
     space = raster_key_space(height, width, min_radius, max_radius)
     key = ((row + max_radius) * kw + (col + max_radius)) * kr + (
         rad - min_radius)
-    batched = row.ndim == 2
-    if not batched:
-        key = torch.where(ok, key, space)
-        uk = torch.unique(key)
-        uk = uk[uk < space]
-        return _decode(uk, kw, kr, min_radius, max_radius), int(uk.numel())
     if cap is None:
         raise ValueError("dedupe_circles: a batch of planes needs a cap")
     n = row.shape[0]
@@ -418,6 +426,30 @@ def dedupe_circles(circles, valid, *, height: int, width: int,
                                         max_radius)
     uvalid = torch.arange(cap, device=key.device)[None, :] < n_unique[:, None]
     return uniq, uvalid, n_unique
+
+
+def circle_keys(circles, valid, *, height: int, width: int, min_radius: int,
+                max_radius: int) -> torch.Tensor:
+    """The ascending unique dedupe keys of one plane's proposals (three f32
+    tensors (M,)) that pass the round-and-bound filter: a key is a triple's
+    index in the (row, col, radius) raster of :func:`raster_key_space`, so
+    the union of several sets of proposals is the unique of their keys."""
+    row, col, rad, ok = _round_filter(
+        circles, valid, height=height, width=width, min_radius=min_radius,
+        max_radius=max_radius)
+    kw = width + 2 * max_radius + 1
+    kr = max_radius - min_radius + 1
+    space = raster_key_space(height, width, min_radius, max_radius)
+    key = ((row + max_radius) * kw + (col + max_radius)) * kr + (
+        rad - min_radius)
+    uk = torch.unique(torch.where(ok, key, space))
+    return uk[uk < space]
+
+
+def decode_keys(keys, *, width: int, min_radius: int, max_radius: int):
+    """(n, 3) int32 (row, col, radius) triples of :func:`circle_keys`."""
+    return _decode(keys, width + 2 * max_radius + 1,
+                   max_radius - min_radius + 1, min_radius, max_radius)
 
 
 def _decode(key, kw, kr, min_radius, max_radius):
@@ -647,12 +679,15 @@ def perimeter_score(grad_angles, edges, circles, valid=None, *,
     valid_u8 = None if valid is None else \
         valid.to(torch.bool).contiguous().view(torch.uint8)
     per_plane = circles.shape[1] if circles.ndim == 3 else n
-    err = _build.load().mg_perimeter_score(
-        angles.data_ptr(), edges_u8.data_ptr(), h, w, pad, circ.data_ptr(),
-        None if valid_u8 is None else valid_u8.data_ptr(), n, per_plane,
-        _kernel_table(int(max_radius), str(dev)).data_ptr(),
-        lengths.data_ptr(), int(max_radius), offsets.shape[1], lanes,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    table = _kernel_table(int(max_radius), str(dev))
+    with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        err = _build.load().mg_perimeter_score(
+            angles.data_ptr(), edges_u8.data_ptr(), h, w, pad,
+            circ.data_ptr(),
+            None if valid_u8 is None else valid_u8.data_ptr(), n, per_plane,
+            table.data_ptr(), lengths.data_ptr(), int(max_radius),
+            offsets.shape[1], lanes, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     perimeter_launches += 1
     perimeter_batched_launches += int(circles.ndim == 3)
     _build.check(err, "mg_perimeter_score")

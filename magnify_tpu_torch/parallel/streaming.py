@@ -17,7 +17,10 @@ from collections.abc import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-__all__ = ["DevicePrefetcher", "PinnedUploader", "stream_planes"]
+from magnify_tpu_torch.parallel.mesh import PlaneBands, row_pad
+
+__all__ = ["DevicePrefetcher", "MeshUploader", "PinnedUploader",
+           "stream_planes"]
 
 
 class PinnedUploader:
@@ -72,21 +75,59 @@ class PinnedUploader:
         return tensor
 
 
+class MeshUploader:
+    """:class:`PinnedUploader` for a mesh: each uploaded plane (H, W) is
+    REFLECT_101-padded to the mesh's row bands and cut into them, band
+    ``s`` to the space device ``s`` of one batch row (the rows take the
+    planes in turn), each through the pinned ring of its device.
+    :meth:`receive` gives the plane as a
+    :class:`~magnify_tpu_torch.parallel.mesh.PlaneBands`, which
+    ``sharded_find_circles_batch`` takes as it is."""
+
+    def __init__(self, mesh, slots: int = 3):
+        self.mesh = mesh
+        self._uploaders = {d: PinnedUploader(d, slots)
+                           for d in dict.fromkeys(mesh.devices.flat)}
+        self._row = 0
+
+    def upload(self, block: np.ndarray):
+        rows = self.mesh.devices[self._row % self.mesh.devices.shape[0]]
+        self._row += 1
+        h = block.shape[-2]
+        pad_h = row_pad(h, len(rows))
+        if pad_h >= h:
+            raise ValueError(f"cannot reflect-pad {h} rows by {pad_h}; use "
+                             "fewer 'space' shards for this image.")
+        if pad_h:
+            block = np.concatenate([block, block[h - 1 - pad_h:h - 1][::-1]])
+        out = [self._uploaders[d].upload(b)
+               for d, b in zip(rows, np.split(block, len(rows)))]
+        return PlaneBands([t for t, _e in out], h), [e for _t, e in out]
+
+    def receive(self, plane, events):
+        return PlaneBands([self._uploaders[b.device].receive(b, e)
+                           for b, e in zip(plane.bands, events)],
+                          plane.height)
+
+
 class DevicePrefetcher:
     """Iterate (key, device_tensor) with IO + transfer overlapped.
 
     ``loader(key) -> np.ndarray`` runs on a background thread (decoding,
     memmap reads); the block goes straight into a pinned buffer and its
     asynchronous copy, up to ``depth`` blocks ahead, so consumers receive
-    tensors that are usually already resident when they are needed.
+    tensors that are usually already resident when they are needed. With a
+    ``mesh`` each block, a plane (H, W), arrives as its row bands on the
+    mesh's devices (:class:`MeshUploader`).
     """
 
     def __init__(self, keys: Iterable, loader: Callable, depth: int = 2,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.keys = list(keys)
         self.loader = loader
         self.depth = max(1, depth)
         self.device = torch.device(device)
+        self.mesh = mesh
 
     def __iter__(self) -> Iterator:
         queue: collections.deque = collections.deque()
@@ -95,7 +136,9 @@ class DevicePrefetcher:
         failure: list = []
         cancelled = threading.Event()
         # One block being filled, ``depth`` queued, one with the consumer.
-        uploader = PinnedUploader(self.device, slots=self.depth + 2)
+        uploader = (PinnedUploader(self.device, slots=self.depth + 2)
+                    if self.mesh is None else
+                    MeshUploader(self.mesh, slots=self.depth + 2))
 
         def produce():
             try:
@@ -145,12 +188,19 @@ class DevicePrefetcher:
 
 
 def stream_planes(dataset, var: str = "image", dims=("channel", "time"),
-                  depth: int = 2, device="cuda"):
+                  depth: int = 2, device="cuda", mesh=None):
     """Stream (index, device_plane) pairs from a dataset variable.
 
     Iterates the cartesian product of ``dims`` (e.g. every channel x time
     plane of the stitched image), loading each plane from its (possibly
     lazy / memmapped) backing store on a background thread.
+
+    With a ``mesh`` (:func:`magnify_tpu_torch.parallel.mesh.make_mesh`)
+    each plane arrives as its row bands on the space devices of one batch
+    row (a :class:`~magnify_tpu_torch.parallel.mesh.PlaneBands`), the rows
+    taking the planes in turn (the counterpart of the JAX package's
+    ``sharding=``): a list of them is a batch that
+    ``sharded_find_circles_batch`` detects without a stop on one device.
     """
     da = dataset[var]
     used = [d for d in dims if d in da.dims]
@@ -163,4 +213,5 @@ def stream_planes(dataset, var: str = "image", dims=("channel", "time"),
             sub = sub.isel(**{d: int(i)})
         return sub.to_numpy()
 
-    return DevicePrefetcher(keys, loader, depth=depth, device=device)
+    return DevicePrefetcher(keys, loader, depth=depth, device=device,
+                            mesh=mesh)

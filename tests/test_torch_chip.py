@@ -367,8 +367,13 @@ def test_chip_parameter_surface_and_errors():
         # The RANSAC grid search refuses the same geometry, on the host.
         mt.microfluidic_chip(img, shape=(2, 2), detector="ransac",
                              num_iter=1000, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.microfluidic_chip(img, interactive=True, device="cpu")
+    # The tuning UI runs headless (each stage once, with the defaults): the
+    # result is the one without it.
+    got = _flatten(run_case(mt, "2x2", device="cpu", interactive=True), "i")
+    want = _flatten(run_case(mt, "2x2", device="cpu"), "i")
+    assert sorted(got) == sorted(want)
+    for key, val in want.items():
+        np.testing.assert_array_equal(got[key], val, err_msg=key)
     with pytest.raises(ValueError, match="exceeds total_length"):
         mt.microfluidic_chip(img, shape=(2, 2), device="cpu", **KW)
     if not torch.cuda.is_available():

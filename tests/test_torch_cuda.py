@@ -689,3 +689,55 @@ def test_find_circles_cuda_matches_cpu(cuda, detector, scorer, monkeypatch):
                                           device="cpu")):
             np.testing.assert_array_equal(g[0], w[0])
             np.testing.assert_array_equal(g[1], w[1])
+
+
+def _mesh(dev, batch, space):
+    from magnify_tpu_torch.parallel import make_mesh
+
+    return make_mesh(batch, space, devices=[dev] * (batch * space))
+
+
+@pytest.mark.parametrize("space", [2, 4])
+def test_sharded_hysteresis_cuda_matches_cpu(cuda, space):
+    """The rounds of the sharded hysteresis through the kernel on a (2,
+    space) mesh of the card: equal to the CPU mesh and to the plain twin,
+    on a serpentine across every band boundary and on random masks."""
+    from magnify_tpu_torch.parallel.mesh import sharded_hysteresis
+
+    s1, w1 = _serpentine()
+    s2, w2 = _masks(7, s1.shape)
+    strong = torch.as_tensor(np.stack([s1, s2]))
+    weak = torch.as_tensor(np.stack([w1, w2]))
+    before = thyst.launches
+    got, rounds = sharded_hysteresis(strong.to(cuda), weak.to(cuda),
+                                     _mesh("cuda", 2, space))
+    assert thyst.launches - before == rounds * thyst.LAUNCHES_PER_CALL
+    want, want_rounds = sharded_hysteresis(strong, weak, _mesh("cpu", 2,
+                                                               space))
+    assert rounds == want_rounds > 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, thyst.hysteresis_plain(strong, weak))
+
+
+@pytest.mark.parametrize("batch,space", [(2, 4), (1, 8)])
+def test_sharded_detection_cuda_matches_cpu(cuda, batch, space):
+    """Dense detection over a mesh of the card equals the CPU mesh and the
+    one-device detection; ring_corr launches once a call."""
+    from magnify_tpu_torch.ops import detect
+    from magnify_tpu_torch.parallel import sharded_find_circles_batch
+    from test_torch_ops_api import plane
+
+    planes = np.stack([plane(s) for s in (2, 3, 4)]).astype(np.float32)
+    args = (0.1, 0.9, 0.3)
+    kw = dict(min_radius=8, max_radius=12, min_dist=8)
+    before = tscore.launches
+    got = sharded_find_circles_batch(planes, _mesh("cuda", batch, space),
+                                     *args, **kw)
+    assert tscore.launches - before == 1
+    want = sharded_find_circles_batch(planes, _mesh("cpu", batch, space),
+                                      *args, **kw)
+    for (c, s), (wc, ws), p in zip(got, want, planes):
+        assert torch.equal(c.cpu(), wc) and torch.equal(s.cpu(), ws)
+        oc, os_ = detect.detect_dense(torch.as_tensor(p).to(cuda), *args,
+                                      normalized=False, **kw)
+        assert torch.equal(c, oc) and torch.equal(s, os_)

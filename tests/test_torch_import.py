@@ -43,9 +43,10 @@ torch.set_num_threads(1)
 
 
 def test_import_loads_neither_jax_nor_magnify_tpu():
-    """Neither the package nor any of its modules loads jax, magnify_tpu,
-    pandas, or the optional io packages (bs4, h5py, PIL, zstandard): those
-    load only where a file needs them."""
+    """Neither the package nor any of its modules (the mesh, multihost and
+    plot modules included) loads jax, magnify_tpu, pandas, or the optional
+    io packages (bs4, h5py, PIL, zstandard): those load only where a file
+    needs them."""
     code = ("import sys, magnify_tpu_torch, chip_smoke\n"
             "import magnify_tpu_torch.components.identify\n"
             "import magnify_tpu_torch.ops.reduce\n"
@@ -67,6 +68,13 @@ def test_import_loads_neither_jax_nor_magnify_tpu():
             "import magnify_tpu_torch.ops.basic\n"
             "import magnify_tpu_torch.ops.detect\n"
             "import magnify_tpu_torch.core.pipeline\n"
+            "import magnify_tpu_torch.parallel.mesh\n"
+            "import magnify_tpu_torch.parallel.multihost\n"
+            "import magnify_tpu_torch.plot\n"
+            "import magnify_tpu_torch.plot.image\n"
+            "import magnify_tpu_torch.plot.mrbles\n"
+            "import magnify_tpu_torch.plot.style\n"
+            "import magnify_tpu_torch.plot.vis\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'magnify_tpu',\n"
             "                                    'pandas', 'bs4', 'h5py',\n"
@@ -154,12 +162,23 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 
 def test_unported_options_raise():
-    """The tuning UI is not ported and raises. Paths (inputs and flat
-    fields) are read now: a path that names no file raises as the JAX
-    package's reader does."""
-    img = mt.DataArray(np.zeros((64, 64), np.uint16), dims=("y", "x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.beads(img, interactive=True, device="cpu")
+    """The tuning UI is ported: headless it runs each stage once with the
+    defaults and returns the result without it. A path (input or flat
+    field) that names no file raises as the JAX package's reader does."""
+    from magnify_tpu_torch.utils import filled_circle_points
+
+    plane = np.zeros((128, 128), np.uint16)
+    pts = filled_circle_points(10)
+    plane[pts[:, 0] + 60, pts[:, 1] + 64] = 1000
+    img = mt.DataArray(plane, dims=("y", "x"))
+    kw = dict(min_bead_diameter=16, max_bead_diameter=24, overlap=0,
+              device="cpu")
+    got = mt.beads(img, interactive=True, **kw)
+    want = mt.beads(img, **kw)
+    assert got["roi"].sizes["mark"] == 1
+    for name in ("x", "y", "fg", "bg", "roi"):
+        np.testing.assert_array_equal(np.asarray(got[name].values),
+                                      np.asarray(want[name].values))
     with pytest.raises(FileNotFoundError):
         mt.beads("some/path/*.tif", device="cpu")
     with pytest.raises(FileNotFoundError):

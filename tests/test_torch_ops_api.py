@@ -134,10 +134,21 @@ def test_find_circles_stack_matches_jax_and_single_planes(reference):
 
 
 def test_find_circles_gui_raises():
+    """A ``gui`` that is no tuning UI raises; the port's InteractiveUI runs
+    headless (each stage once) and returns the result without a gui."""
     import magnify_tpu_torch as mt
+    from magnify_tpu_torch.plot.vis import InteractiveUI
 
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(AttributeError, match="run_widget"):
         mt.ops.find_circles(plane(0), *ARGS, gui=object(), device="cpu")
+    ui = InteractiveUI()
+    got = mt.ops.find_circles(plane(0), *ARGS, gui=ui, detector="dense",
+                              device="cpu")
+    want = mt.ops.find_circles(plane(0), *ARGS, detector="dense",
+                               device="cpu")
+    assert len(ui.sessions) == 2 and len(want[0]) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def _maps_and_circles(seed, n=40, batch=None):
