@@ -61,10 +61,10 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import contextvars
 import math
 import os
 import threading
-import time
 import warnings
 
 import numpy as np
@@ -443,6 +443,7 @@ class BeadFinder:
         if _stack_bytes(assay) > MAX_RESIDENT_BYTES:
             return (assay, None, None, None)
         image_np, planes = self._host_planes(assay)
+        diagnostics.count("upload_bytes", planes.nbytes)
         return (assay, image_np) + uploader.upload(planes)
 
     def detect(self, planes: np.ndarray) -> np.ndarray:
@@ -451,9 +452,12 @@ class BeadFinder:
         from magnify_tpu_torch.parallel import mesh as mesh_mod
 
         if mesh_mod.sharded_mesh() is None:
-            planes = torch.as_tensor(planes).to(self.device)
+            with diagnostics.span("beads.upload"):
+                planes = torch.as_tensor(planes).to(self.device)
+        diagnostics.count("upload_bytes", planes.nbytes)
         return self.detect_planes(planes)
 
+    @diagnostics.span("beads.detect", device=True)
     def detect_planes(self, planes_dev) -> np.ndarray:
         """:meth:`detect` on planes that already lie on ``self.device`` (or,
         under a mesh, anywhere: they are cut into the mesh's bands, unless
@@ -498,6 +502,7 @@ class BeadFinder:
                                  2 * self.min_bead_radius)
         return np.round(beads).astype(np.int32).reshape(-1, 3)
 
+    @diagnostics.span("beads.assemble")
     def _assemble(self, assay, image_np, beads_i):
         """Ownership masks, ROI crops and coordinates from the marks."""
         sizes = assay.sizes
@@ -506,9 +511,9 @@ class BeadFinder:
         n = len(beads_i)
         beads = beads_i.astype(float)
 
-        fg1, bg1, rois, _tops, _lefts = _bead_finalize_host(
-            image_np, beads_i, L, self.max_bead_radius
-        )
+        with diagnostics.span("beads.finalize_host"):
+            fg1, bg1, rois, _tops, _lefts = _bead_finalize_host(
+                image_np, beads_i, L, self.max_bead_radius)
         roi = alloc_output("roi", (n, n_ch, n_t, L, L), assay["image"].dtype)
         fg = alloc_output("fg", (n, n_t, L, L), bool)
         bg = alloc_output("bg", (n, n_t, L, L), bool)
@@ -945,10 +950,11 @@ class ButtonFinder:
         n_ch, n_t = sizes["channel"], sizes["time"]
         L = self.roi_length
 
-        roi = alloc_output("roi", (num_rows, num_cols, n_ch, n_t, L, L),
-                           assay["image"].dtype)
-        fg = alloc_output("fg", (num_rows, num_cols, n_t, L, L), bool)
-        bg = alloc_output("bg", (num_rows, num_cols, n_t, L, L), bool)
+        with diagnostics.span("chip.alloc"):
+            roi = alloc_output("roi", (num_rows, num_cols, n_ch, n_t, L, L),
+                               assay["image"].dtype)
+            fg = alloc_output("fg", (num_rows, num_cols, n_t, L, L), bool)
+            bg = alloc_output("bg", (num_rows, num_cols, n_t, L, L), bool)
         x = np.zeros((num_rows, num_cols, n_t))
         y = np.zeros((num_rows, num_cols, n_t))
         valid = assay["valid"].transpose(
@@ -961,8 +967,13 @@ class ButtonFinder:
         # package.
         fused = (self.gui is None
                  and ops_detect.resolve_detector(self.detector) != "ransac")
+
+        def load(t):
+            with diagnostics.span("chip.load_timestep"):
+                return assay.image.isel(time=int(t)).to_numpy()  # (C, H, W)
+
         for t in _progress(self.search_timesteps, self.progress_bar):
-            images = assay.image.isel(time=t).to_numpy()  # (channel, H, W)
+            images = load(t)
             if fused:
                 (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
                  y[..., t], valid[..., t]) = self._fused_timestep(
@@ -970,59 +981,68 @@ class ButtonFinder:
                 continue
             # One upload per searched timestep, as f32 (uint16 values are
             # exact; torch indexes no uint16 tensors).
-            images_dev = torch.as_tensor(np.ascontiguousarray(
-                images, dtype=np.float32)).to(self.device)
-            t0 = time.perf_counter()
-            x[..., t], y[..., t] = self.find_centers(images_dev, search_idxs,
-                                                     tag)
-            t1 = time.perf_counter()
-            (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t], y[..., t],
-             valid[..., t]) = self.find_rois(
-                images, images_dev, tag, x[..., t], y[..., t], valid[..., t],
-                search_idxs)
-            last_chip_timings.update(find_centers_s=round(t1 - t0, 6),
-                                     find_rois_s=round(
-                                         time.perf_counter() - t1, 6))
+            with diagnostics.span("chip.upload"):
+                images_dev = torch.as_tensor(np.ascontiguousarray(
+                    images, dtype=np.float32)).to(self.device)
+            diagnostics.count("upload_bytes", images_dev.nbytes)
+            with diagnostics.span("chip.find_centers") as centers:
+                x[..., t], y[..., t] = self.find_centers(
+                    images_dev, search_idxs, tag)
+            with diagnostics.span("chip.find_rois") as rois:
+                (roi[:, :, :, t], fg[:, :, t], bg[:, :, t], x[..., t],
+                 y[..., t], valid[..., t]) = self.find_rois(
+                    images, images_dev, tag, x[..., t], y[..., t],
+                    valid[..., t], search_idxs)
+            last_chip_timings.update(find_centers_s=round(centers.seconds, 6),
+                                     find_rois_s=round(rois.seconds, 6))
 
         # Timesteps that are not searched copy the positions and need ROI
         # crops only: host slicing, with the next plane's read prefetched
         # on a background thread.
         copy_ts = [t for t in range(n_t) if t not in self.search_timesteps]
         if copy_ts:
-            with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-                def _load(t):
-                    return assay.image.isel(time=int(t)).to_numpy()
+            with (diagnostics.span("chip.copy_timesteps"),
+                  concurrent.futures.ThreadPoolExecutor(max_workers=1)
+                  as pool):
+                def submit(t):
+                    # The read's span belongs to this call, on any thread.
+                    return pool.submit(contextvars.copy_context().run, load,
+                                       t)
 
-                pending = pool.submit(_load, copy_ts[0])
+                pending = submit(copy_ts[0])
                 for i, t in enumerate(_progress(copy_ts, self.progress_bar)):
-                    images = pending.result()
+                    with diagnostics.span("chip.load_wait"):
+                        images = pending.result()
                     if i + 1 < len(copy_ts):
-                        pending = pool.submit(_load, copy_ts[i + 1])
-                    copy_t = (self.search_timesteps[0]
-                              if t < self.search_timesteps[0] else t - 1)
-                    xs = x[..., copy_t].reshape(-1)
-                    ys = y[..., copy_t].reshape(-1)
-                    crops = _crop_rois_np(images, xs, ys, L)
-                    roi[:, :, :, t] = crops.reshape(num_rows, num_cols, n_ch,
-                                                    L, L)
-                    fg[:, :, t] = fg[:, :, copy_t]
-                    bg[:, :, t] = bg[:, :, copy_t]
-                    x[..., t] = x[..., copy_t]
-                    y[..., t] = y[..., copy_t]
-                    valid[..., t] = valid[..., copy_t]
+                        pending = submit(copy_ts[i + 1])
+                    with diagnostics.span("chip.copy_crop"):
+                        copy_t = (self.search_timesteps[0]
+                                  if t < self.search_timesteps[0] else t - 1)
+                        xs = x[..., copy_t].reshape(-1)
+                        ys = y[..., copy_t].reshape(-1)
+                        crops = _crop_rois_np(images, xs, ys, L)
+                        roi[:, :, :, t] = crops.reshape(num_rows, num_cols,
+                                                        n_ch, L, L)
+                        fg[:, :, t] = fg[:, :, copy_t]
+                        bg[:, :, t] = bg[:, :, copy_t]
+                        x[..., t] = x[..., copy_t]
+                        y[..., t] = y[..., copy_t]
+                        valid[..., t] = valid[..., copy_t]
 
-        assay["roi"] = Variable(
-            ("mark_row", "mark_col", "channel", "time", "roi_y", "roi_x"), roi
-        )
-        assay = assay.assign_coords(
-            fg=(("mark_row", "mark_col", "time", "roi_y", "roi_x"), fg),
-            bg=(("mark_row", "mark_col", "time", "roi_y", "roi_x"), bg),
-            x=(("mark_row", "mark_col", "time"), x),
-            y=(("mark_row", "mark_col", "time"), y),
-            valid=(("mark_row", "mark_col", "time"), valid),
-        )
-        assay = assay.stack(mark=("mark_row", "mark_col")).transpose("mark", ...)
-        assay.cache(["roi", "fg", "bg"])
+        with diagnostics.span("chip.assemble"):
+            assay["roi"] = Variable(
+                ("mark_row", "mark_col", "channel", "time", "roi_y", "roi_x"),
+                roi)
+            assay = assay.assign_coords(
+                fg=(("mark_row", "mark_col", "time", "roi_y", "roi_x"), fg),
+                bg=(("mark_row", "mark_col", "time", "roi_y", "roi_x"), bg),
+                x=(("mark_row", "mark_col", "time"), x),
+                y=(("mark_row", "mark_col", "time"), y),
+                valid=(("mark_row", "mark_col", "time"), valid),
+            )
+            assay = assay.stack(mark=("mark_row", "mark_col")).transpose(
+                "mark", ...)
+            assay.cache(["roi", "fg", "bg"])
         return assay
 
     def _fused_timestep(self, images_np, tag, valid_t, search_idxs):
@@ -1040,73 +1060,77 @@ class ButtonFinder:
         L = self.roi_length
         h, w = images_np.shape[-2:]
 
-        t0 = time.perf_counter()
-        raw_planes = np.ascontiguousarray(images_np[list(search_idxs)])
-        precision = ops_detect.choose_upload_precision(raw_planes)
-        normalized = precision == "u8"
-        if normalized:
-            planes_q = ops_detect.normalize_planes_u8(raw_planes)
-            planes_dev = torch.as_tensor(planes_q).to(self.device)
-        else:
-            # uint16 values, carried as f32 (exact): torch indexes no
-            # uint16 tensors.
-            planes_q = ops_detect.normalize_planes_u16(raw_planes)
-            planes_dev = torch.as_tensor(
-                planes_q.astype(np.float32)).to(self.device)
-        t1 = time.perf_counter()
+        with diagnostics.span("chip.normalize_upload") as upload:
+            raw_planes = np.ascontiguousarray(images_np[list(search_idxs)])
+            precision = ops_detect.choose_upload_precision(raw_planes)
+            normalized = precision == "u8"
+            if normalized:
+                planes_q = ops_detect.normalize_planes_u8(raw_planes)
+                planes_dev = torch.as_tensor(planes_q).to(self.device)
+            else:
+                # uint16 values, carried as f32 (exact): torch indexes no
+                # uint16 tensors.
+                planes_q = ops_detect.normalize_planes_u16(raw_planes)
+                planes_dev = torch.as_tensor(
+                    planes_q.astype(np.float32)).to(self.device)
+        diagnostics.count("upload_bytes", planes_dev.nbytes)
 
-        for chamber, total, count, dist in (
-            (self.top_chamber, h, num_rows, self.row_dist),
-            (self.left_chamber, w, num_cols, self.col_dist),
-        ):
-            if chamber is None and gridfit.num_offsets(
-                    total, count, dist) <= 0:
-                raise ValueError(
-                    "cluster_1d: num_clusters * cluster_length exceeds "
-                    "total_length."
-                )
+        with diagnostics.span("chip.dispatch", self.device) as dispatch:
+            for chamber, total, count, dist in (
+                (self.top_chamber, h, num_rows, self.row_dist),
+                (self.left_chamber, w, num_cols, self.col_dist),
+            ):
+                if chamber is None and gridfit.num_offsets(
+                        total, count, dist) <= 0:
+                    raise ValueError(
+                        "cluster_1d: num_clusters * cluster_length exceeds "
+                        "total_length."
+                    )
 
-        ppr = (tag != "").sum(axis=1).astype(np.float32)
-        ppc = (tag != "").sum(axis=0).astype(np.float32)
-        high_q_roi = 1 - np.pi * self.min_button_radius / L**2
-        out = chip_fused(
-            planes_dev, float(self.low_edge_quantile),
-            float(self.high_edge_quantile), float(high_q_roi),
-            float(self.min_roundness), float(self.cluster_penalty), ppr, ppc,
-            num_rows=num_rows, num_cols=num_cols,
-            row_dist=float(self.row_dist), col_dist=float(self.col_dist),
-            top_chamber=self.top_chamber, left_chamber=self.left_chamber,
-            chamber_radius=int(self.chamber_radius),
-            min_radius=self.min_button_radius,
-            max_radius=self.max_button_radius, roi_length=L,
-            normalized=normalized, mesh=mesh_mod.sharded_mesh())
-        circle = out["circle"].cpu().numpy()
-        score = out["score"].cpu().numpy()
-        mark_x = out["mark_x"].cpu().numpy()
-        mark_y = out["mark_y"].cpu().numpy()
-        row_counts = out["row_counts"].cpu().numpy()
-        col_counts = out["col_counts"].cpu().numpy()
-        t2 = time.perf_counter()
+            ppr = (tag != "").sum(axis=1).astype(np.float32)
+            ppc = (tag != "").sum(axis=0).astype(np.float32)
+            diagnostics.count("upload_bytes", ppr.nbytes + ppc.nbytes)
+            high_q_roi = 1 - np.pi * self.min_button_radius / L**2
+            out = chip_fused(
+                planes_dev, float(self.low_edge_quantile),
+                float(self.high_edge_quantile), float(high_q_roi),
+                float(self.min_roundness), float(self.cluster_penalty),
+                torch.as_tensor(ppr).to(self.device),
+                torch.as_tensor(ppc).to(self.device), num_rows=num_rows,
+                num_cols=num_cols,
+                row_dist=float(self.row_dist), col_dist=float(self.col_dist),
+                top_chamber=self.top_chamber, left_chamber=self.left_chamber,
+                chamber_radius=int(self.chamber_radius),
+                min_radius=self.min_button_radius,
+                max_radius=self.max_button_radius, roi_length=L,
+                normalized=normalized, mesh=mesh_mod.sharded_mesh())
+            circle = out["circle"].cpu().numpy()
+            score = out["score"].cpu().numpy()
+            mark_x = out["mark_x"].cpu().numpy()
+            mark_y = out["mark_y"].cpu().numpy()
+            row_counts = out["row_counts"].cpu().numpy()
+            col_counts = out["col_counts"].cpu().numpy()
 
-        for cnt, ideal, edge in (
-            (row_counts[0], ppr, 0), (row_counts[-1], ppr, num_rows - 1),
-            (col_counts[0], ppc, 0), (col_counts[-1], ppc, num_cols - 1),
-        ):
-            if cnt < 2 and ideal[edge] >= 2:
-                diagnostics.log.warning(
-                    "edge cluster %d has %d point(s); the chip grid is "
-                    "unlikely to be segmented correctly", edge, int(cnt),
-                )
+        with diagnostics.span("chip.crops_masks") as crops_masks:
+            for cnt, ideal, edge in (
+                (row_counts[0], ppr, 0), (row_counts[-1], ppr, num_rows - 1),
+                (col_counts[0], ppc, 0), (col_counts[-1], ppc, num_cols - 1),
+            ):
+                if cnt < 2 and ideal[edge] >= 2:
+                    diagnostics.log.warning(
+                        "edge cluster %d has %d point(s); the chip grid is "
+                        "unlikely to be segmented correctly", edge, int(cnt),
+                    )
 
-        placed = self._place_chambers(images_np, tag, circle, score, mark_x,
-                                      mark_y, mark_x, mark_y)
+            placed = self._place_chambers(images_np, tag, circle, score,
+                                          mark_x, mark_y, mark_x, mark_y)
         last_chip_timings.clear()
         last_chip_timings.update(
             upload_bytes=int(planes_q.nbytes),
             upload_precision=precision,
-            normalize_upload_s=round(t1 - t0, 6),
-            dispatch_pull_s=round(t2 - t1, 6),
-            host_crops_masks_s=round(time.perf_counter() - t2, 6),
+            normalize_upload_s=round(upload.seconds, 6),
+            dispatch_pull_s=round(dispatch.seconds, 6),
+            host_crops_masks_s=round(crops_masks.seconds, 6),
         )
         return placed + (valid_t,)
 
@@ -1264,6 +1288,7 @@ class ButtonFinder:
             dev = images_dev.device
             xs32 = torch.as_tensor(xs.astype(np.float32))
             ys32 = torch.as_tensor(ys.astype(np.float32))
+            diagnostics.count("upload_bytes", xs32.nbytes + ys32.nbytes)
             circle, score = _refine_chambers(
                 images_dev[search_idxs], xs32.to(dev), ys32.to(dev),
                 float(self.low_edge_quantile), float(high_q),
@@ -1275,6 +1300,7 @@ class ButtonFinder:
                 xs32, ys32, xs, ys) + (valid,)
 
         tops, lefts = _roi_windows(xs, ys, L, h, w)
+        diagnostics.count("upload_bytes", tops.nbytes + lefts.nbytes)
         crops_dev = ops_geom.extract_rois(
             images_dev, torch.as_tensor(tops, device=images_dev.device),
             torch.as_tensor(lefts, device=images_dev.device), L)

@@ -25,12 +25,12 @@ from __future__ import annotations
 
 import csv
 import re
-import time
 
 import numpy as np
 import scipy.spatial
 import torch
 
+from magnify_tpu_torch import diagnostics
 from magnify_tpu_torch.core.lazy import is_memmap_backed
 from magnify_tpu_torch.core.registry import component
 from magnify_tpu_torch.ops.edge import fma_f32
@@ -357,8 +357,10 @@ def _gmm_em(X, means0, covs0, proportions0, bounds_log_vol,
 
 
 # Wall-clock of the last decode's stages (intensities/lstsq, kNN trim,
-# lattice fit, GMM-EM), for diagnostics and reports. Overwritten by every
-# identify_mrbles call.
+# lattice fit, GMM-EM), for diagnostics and reports: the host time of each
+# stage's span (``identify.<stage>``), which waits for the card only where
+# the stage itself pulls a result. Overwritten by every identify_mrbles
+# call.
 last_decode_timings: dict[str, float] = {}
 
 
@@ -372,129 +374,121 @@ def identify_mrbles(assay, spectra, codes, reference="eu", device="cuda"):
     lattice fit and the EM run.
     """
     device = torch.device(device)
-    t0 = time.perf_counter()
-
-    def stamp(stage):
-        nonlocal t0
-        if device.type == "cuda":
-            # The calling thread's stream only: a stream's assembly worker
-            # must not wait for the detection of the next frame.
-            torch.cuda.current_stream(device).synchronize()
-        now = time.perf_counter()
-        last_decode_timings[stage] = round(now - t0, 4)
-        t0 = now
-
     last_decode_timings.clear()
-    spectra_tab = _read_csv(spectra)
-    spectra_names = _name_column(spectra_tab, spectra)
-    order = _reference_first(spectra_names, reference)
-    lns = [str(spectra_names[i]) for i in order]
-    num_lns = len(lns)
+    with diagnostics.span("identify.intensities_lstsq", device) as timed:
+        spectra_tab = _read_csv(spectra)
+        spectra_names = _name_column(spectra_tab, spectra)
+        order = _reference_first(spectra_names, reference)
+        lns = [str(spectra_names[i]) for i in order]
+        num_lns = len(lns)
 
-    codes_tab = _read_csv(codes)
-    tag_names = _name_column(codes_tab, codes)
-    if set(codes_tab) - {"name"} != set(lns):
-        raise ValueError(
-            f"Lanthanide names in {codes} do not match lanthanide names in "
-            f"{spectra}."
-        )
+        codes_tab = _read_csv(codes)
+        tag_names = _name_column(codes_tab, codes)
+        if set(codes_tab) - {"name"} != set(lns):
+            raise ValueError(
+                f"Lanthanide names in {codes} do not match lanthanide names "
+                f"in {spectra}."
+            )
 
-    if assay.sizes.get("mark", 0) == 0:
-        # Empty field (find_beads found nothing): nothing to decode. The
-        # lattice fit and the GMM need >= 1 point; return the
-        # empty-but-valid schema.
+        if assay.sizes.get("mark", 0) == 0:
+            # Empty field (find_beads found nothing): nothing to decode. The
+            # lattice fit and the GMM need >= 1 point; return the
+            # empty-but-valid schema.
+            assay = assay.assign_coords(ln=(("ln",), np.asarray(lns)))
+            assay["ln_vol"] = (("mark", "ln"), np.zeros((0, num_lns)))
+            assay["ln_ratio"] = (("mark", "ln"), np.zeros((0, num_lns)))
+            return assay.assign_coords(
+                tag=(("mark",), np.zeros(0, dtype="<U64")))
+
+        # Step 1: lanthanide volumes from SV = I least squares.
+        channels = [c for c in assay["channel"].values.tolist()
+                    if c in spectra_tab]
+        sp = np.stack([np.asarray(spectra_tab[c], np.float64)[order]
+                       for c in channels], axis=1)
+        sel = assay.roi.isel(time=0).sel(channel=channels)
+        fg = assay["fg"].isel(time=0)
+        bg = assay["bg"].isel(time=0)
+        # A ROI store that was spilled to disk reduces on the host twin: the
+        # data already lives in host files, and uploading it would cost more
+        # than the device reduction saves. A property of the data, so decided
+        # here and nowhere else.
+        reduce_device = ("cpu" if is_memmap_backed(assay["roi"].data)
+                         else device)
+        intensities = fg_mean_bg_median(sel.to_numpy(), fg.to_numpy(),
+                                        bg.to_numpy(), device=reduce_device)
+        volumes = np.linalg.lstsq(sp.T, intensities.T, rcond=None)[0].T
+        ratios = volumes / volumes[:, 0:1]
+    last_decode_timings["intensities_lstsq"] = round(timed.seconds, 4)
+    with diagnostics.span("identify.knn_trim", device) as timed:
         assay = assay.assign_coords(ln=(("ln",), np.asarray(lns)))
-        assay["ln_vol"] = (("mark", "ln"), np.zeros((0, num_lns)))
-        assay["ln_ratio"] = (("mark", "ln"), np.zeros((0, num_lns)))
-        return assay.assign_coords(tag=(("mark",), np.zeros(0, dtype="<U64")))
+        assay["ln_vol"] = (("mark", "ln"), volumes)
+        assay["ln_ratio"] = (("mark", "ln"), ratios)
 
-    # Step 1: lanthanide volumes from SV = I least squares.
-    channels = [c for c in assay["channel"].values.tolist()
-                if c in spectra_tab]
-    sp = np.stack([np.asarray(spectra_tab[c], np.float64)[order]
-                   for c in channels], axis=1)
-    sel = assay.roi.isel(time=0).sel(channel=channels)
-    fg = assay["fg"].isel(time=0)
-    bg = assay["bg"].isel(time=0)
-    # A ROI store that was spilled to disk reduces on the host twin: the
-    # data already lives in host files, and uploading it would cost more
-    # than the device reduction saves. A property of the data, so decided
-    # here and nowhere else.
-    reduce_device = ("cpu" if is_memmap_backed(assay["roi"].data)
-                     else device)
-    intensities = fg_mean_bg_median(sel.to_numpy(), fg.to_numpy(),
-                                    bg.to_numpy(), device=reduce_device)
-    volumes = np.linalg.lstsq(sp.T, intensities.T, rcond=None)[0].T
-    ratios = volumes / volumes[:, 0:1]
-    stamp("intensities_lstsq")
-    assay = assay.assign_coords(ln=(("ln",), np.asarray(lns)))
-    assay["ln_vol"] = (("mark", "ln"), volumes)
-    assay["ln_ratio"] = (("mark", "ln"), ratios)
-
-    # Step 2: aggressive kNN outlier trim.
-    X = ratios[:, 1:]
-    num_codes = len(tag_names)
-    n_neighbor = round(len(X) / (20 * num_codes)) + 2
-    dist = (
-        scipy.spatial.KDTree(X, leafsize=n_neighbor)
-        .query(X, k=[n_neighbor], workers=-1)[0]
-        .flatten()
-    )
-    X_r = X[dist <= np.percentile(dist, 95)]
-    stamp("knn_trim")
+        # Step 2: aggressive kNN outlier trim.
+        X = ratios[:, 1:]
+        num_codes = len(tag_names)
+        n_neighbor = round(len(X) / (20 * num_codes)) + 2
+        dist = (
+            scipy.spatial.KDTree(X, leafsize=n_neighbor)
+            .query(X, k=[n_neighbor], workers=-1)[0]
+            .flatten()
+        )
+        X_r = X[dist <= np.percentile(dist, 95)]
+    last_decode_timings["knn_trim"] = round(timed.seconds, 4)
 
     # Step 3: per-dim affine lattice fit, then nearest-code assignment.
-    code_ratios = np.stack([codes_tab[ln] for ln in lns[1:]], axis=1)
-    A = np.zeros(num_lns - 1)
-    p = np.zeros(num_lns - 1)
-    for i in range(num_lns - 1):
-        c, counts = np.unique(code_ratios[:, i], return_counts=True)
-        if len(c) == 1:
-            A[i], p[i] = 1.0, X_r[:, i].mean()
-            continue
-        a_i, p_i = _fit_affine_1d(np.sort(X_r[:, i]), c, counts,
-                                  device=device)
-        A[i], p[i] = float(a_i), float(p_i)
+    with diagnostics.span("identify.lattice_fit", device) as timed:
+        code_ratios = np.stack([codes_tab[ln] for ln in lns[1:]], axis=1)
+        A = np.zeros(num_lns - 1)
+        p = np.zeros(num_lns - 1)
+        for i in range(num_lns - 1):
+            c, counts = np.unique(code_ratios[:, i], return_counts=True)
+            if len(c) == 1:
+                A[i], p[i] = 1.0, X_r[:, i].mean()
+                continue
+            a_i, p_i = _fit_affine_1d(np.sort(X_r[:, i]), c, counts,
+                                      device=device)
+            A[i], p[i] = float(a_i), float(p_i)
+    last_decode_timings["lattice_fit"] = round(timed.seconds, 4)
+    with diagnostics.span("identify.gmm_em", device) as timed:
+        lattice = A * code_ratios + p
+        tag_idxs = np.argmin(
+            np.linalg.norm(X_r[:, None] - lattice[None], axis=-1), axis=1
+        )
 
-    stamp("lattice_fit")
-    lattice = A * code_ratios + p
-    tag_idxs = np.argmin(
-        np.linalg.norm(X_r[:, None] - lattice[None], axis=-1), axis=1
-    )
+        # Step 4: GMM refinement with a uniform outlier component.
+        d = num_lns - 1
+        means = np.zeros((num_codes, d))
+        covs = np.zeros((num_codes, d, d)) + np.eye(d) * 1e-10
+        proportions = np.zeros(num_codes + 1)
+        for i in range(num_codes):
+            members = X_r[tag_idxs == i]
+            proportions[i] = len(members) + 1
+            means[i] = (np.median(members, axis=0) if len(members)
+                        else lattice[i])
+            if len(members) > 1:
+                covs[i] += np.cov(members, rowvar=False).reshape(d, d)
+        covs[:] = np.median(covs, axis=0)
+        # The ELEMENTWISE median of PSD matrices need not be PSD: with noise
+        # members inflating cross terms, med(c00)*med(c11) can fall below
+        # med(c01)^2, and a non-PD init kills EM at iteration 0 — the
+        # nearest-code fallback then codes every noise detection. Regularize
+        # like the in-loop update; if still not PD, drop the cross terms (the
+        # diagonal of variances is PD by construction).
+        covs += np.eye(d) * np.abs(np.diagonal(covs[0])).mean() / 10
+        if np.linalg.eigvalsh(covs[0]).min() <= 0:
+            covs[:] = np.diag(np.maximum(np.diagonal(covs[0]), 1e-10))
+        proportions[-1] = 1e-10
+        proportions /= proportions.sum()
+        span = np.log(X_r.max(axis=0) - X_r.min(axis=0)).sum()
 
-    # Step 4: GMM refinement with a uniform outlier component.
-    d = num_lns - 1
-    means = np.zeros((num_codes, d))
-    covs = np.zeros((num_codes, d, d)) + np.eye(d) * 1e-10
-    proportions = np.zeros(num_codes + 1)
-    for i in range(num_codes):
-        members = X_r[tag_idxs == i]
-        proportions[i] = len(members) + 1
-        means[i] = (np.median(members, axis=0) if len(members)
-                    else lattice[i])
-        if len(members) > 1:
-            covs[i] += np.cov(members, rowvar=False).reshape(d, d)
-    covs[:] = np.median(covs, axis=0)
-    # The ELEMENTWISE median of PSD matrices need not be PSD: with noise
-    # members inflating cross terms, med(c00)*med(c11) can fall below
-    # med(c01)^2, and a non-PD init kills EM at iteration 0 — the
-    # nearest-code fallback then codes every noise detection. Regularize
-    # like the in-loop update; if still not PD, drop the cross terms (the
-    # diagonal of variances is PD by construction).
-    covs += np.eye(d) * np.abs(np.diagonal(covs[0])).mean() / 10
-    if np.linalg.eigvalsh(covs[0]).min() <= 0:
-        covs[:] = np.diag(np.maximum(np.diagonal(covs[0]), 1e-10))
-    proportions[-1] = 1e-10
-    proportions /= proportions.sum()
-    span = np.log(X_r.max(axis=0) - X_r.min(axis=0)).sum()
+        def to_dev(a):
+            return torch.as_tensor(np.asarray(a, np.float32)).to(device)
 
-    def to_dev(a):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
-
-    probs, ok, had_probs = _gmm_em(to_dev(X), to_dev(means), to_dev(covs),
-                                   to_dev(proportions), float(span))
-    probs = probs.cpu().numpy()  # waits for the EM before the stamp
-    stamp("gmm_em")
+        probs, ok, had_probs = _gmm_em(to_dev(X), to_dev(means), to_dev(covs),
+                                       to_dev(proportions), float(span))
+        probs = probs.cpu().numpy()  # waits for the EM
+    last_decode_timings["gmm_em"] = round(timed.seconds, 4)
     tag_names = np.append(tag_names, "outlier")
     if not bool(ok):
         # Warn, keep the last good posteriors if any iteration succeeded,

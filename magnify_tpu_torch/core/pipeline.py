@@ -5,13 +5,16 @@ assay produced by a reader: insertion by name/index/first/last,
 duplicate-name rejection, removal by name. The same contract as
 ``magnify_tpu.core.pipeline``, with the same stage timers: the reader runs
 as the stage ``"read"`` and each component as a stage of its own name
-(:func:`magnify_tpu_torch.diagnostics.stage_timer`).
+(:func:`magnify_tpu_torch.diagnostics.stage_timer`), and each call gives
+the spans inside it one id
+(:func:`magnify_tpu_torch.diagnostics.pipeline_call`).
 """
 
 from __future__ import annotations
 
 from collections.abc import Callable
 
+from magnify_tpu_torch import diagnostics
 from magnify_tpu_torch.core import registry as _registry
 
 __all__ = ["Pipeline"]
@@ -26,6 +29,7 @@ class Pipeline:
     def component_names(self) -> list[str]:
         return [name for name, _ in self.components]
 
+    @diagnostics.pipeline_call()
     def __call__(self, data):
         from magnify_tpu_torch.diagnostics import stage_timer
 

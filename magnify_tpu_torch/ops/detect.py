@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from magnify_tpu_torch import diagnostics
 from magnify_tpu_torch.ops import prng
 from magnify_tpu_torch.ops.edge import edge_pipeline
 from magnify_tpu_torch.ops.nms import parallel_greedy_nms
@@ -94,6 +95,7 @@ def resolve_detector(detector: str = "auto") -> str:
     return "dense" if mode == "auto" else mode
 
 
+@diagnostics.span("detect.normalize_u8")
 def normalize_planes_u8(images: np.ndarray) -> np.ndarray:
     """Per-plane min-max normalization to uint8 with trunc cast (f32 math,
     bit-identical to the JAX package's host and device normalizations)."""

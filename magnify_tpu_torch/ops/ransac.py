@@ -24,12 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from magnify_tpu_torch import diagnostics
 from magnify_tpu_torch.ops import prng
 from magnify_tpu_torch.ops.edge import fma_f32, sqrt_f32
 
 __all__ = ["candidate_circles"]
 
 
+@diagnostics.span("ransac.sampler", device=True)
 def candidate_circles(edges: torch.Tensor, grid_length: int, num_iter: int,
                       key: torch.Tensor, start=None, count: int | None = None):
     """Propose ``num_iter`` circles from an edge mask.
