@@ -37,11 +37,19 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    twin and, for the ring correlation, the cuDNN ``conv2d`` that computes
    the same function (``library_ms``, a yardstick the port never calls),
    and computes each kernel's bound from the bytes it must move and the
-   operations it must do;
+   operations it must do. The uint8 normalization kernel runs at the
+   dense finders' search planes (frame C's 1 x 7,187 x 6,755 and frame
+   S's stitched 2 x 3,688^2), bit-equal to the host's
+   ``normalize_planes_u8`` and to its plain twin, timed beside both;
 3. main paths, each driven with the kernels' launch counts set to 0 just
    before and read just after; every dense path must have launched
    hysteresis and ring_corr, every RANSAC path hysteresis and
-   perimeter_score:
+   perimeter_score, and each path the uint8 normalization exactly as often
+   as its route says: once a call (2 launches) where an in-memory finder
+   without a mesh or the tuning UI gets uint16 search planes (beads A and
+   B, RANSAC beads A, the chips' dense timesteps, the disk paths, frame S),
+   never in the streams, under a mesh, out of core, in the tuning UI or on
+   frame M (float32, so its planes are normalized on the host):
 
    * ``beads`` on frame A (1024^2, 110 beads) and frame B (2 channels,
      2 x 2 tiles of 1024^2, overlap 102, stitched to 1844^2) on ``cuda``;
@@ -149,8 +157,10 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    each of its inputs above (``profiler_ms`` beside ``ms``; ``bound_share``
    over ``profiler_ms`` and ``bound_share_events`` over ``ms``; the lanes a
    circle of each under ``plan``; ``redesigned``), and its batched entry
-   has frame C's chamber batch under the plain keys) and, last, one JSON
-   line
+   has frame C's chamber batch under the plain keys; normalize_u8's has
+   ``ms``/``plain_ms``/``host_ms``/``bound_ms``/``bound_share`` with
+   ``_chip`` and ``_beads``, and no batched entry) and,
+   last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises: the script exits nonzero and prints no result.
@@ -650,14 +660,21 @@ def _frame_b_plane() -> np.ndarray:
         n * th, m * tw)
 
 
-def _frame_s_plane() -> np.ndarray:
-    """Channel "a" of frame S stitched (3,688^2 uint16), as the stitch
-    component joins it: the shape the main path's detector sees (after
-    ``basic_correct``, which changes values, not shape)."""
+def _frame_s_planes() -> np.ndarray:
+    """Both channels of frame S stitched (2 x 3,688^2 uint16), as the
+    stitch component joins them: the bead scan's search planes."""
     clip = OVERLAP_B // 2
-    tiles = frame_s()[0][0, :, :, clip:TILE - clip, clip:TILE - clip]
-    return np.ascontiguousarray(tiles.transpose(0, 2, 1, 3)).reshape(
-        S_GRID * (TILE - OVERLAP_B), S_GRID * (TILE - OVERLAP_B))
+    tiles = frame_s()[0][:, :, :, clip:TILE - clip, clip:TILE - clip]
+    c, n, m, th, tw = tiles.shape
+    return np.ascontiguousarray(tiles.transpose(0, 1, 3, 2, 4)).reshape(
+        c, n * th, m * tw)
+
+
+def _frame_s_plane() -> np.ndarray:
+    """Channel "a" of frame S stitched (3,688^2 uint16): the shape the main
+    path's detector sees (after ``basic_correct``, which changes values,
+    not shape)."""
+    return np.ascontiguousarray(_frame_s_planes()[0])
 
 
 def _serpentine(h: int, w: int):
@@ -1115,6 +1132,62 @@ def _perimeter_record(dev) -> dict:
     return rec
 
 
+def _normalize_record(dev) -> dict:
+    """The uint8 normalization kernel at the dense finders' search planes:
+    the chip's (frame C, 1 x 7,187 x 6,755) and the bead scan's (frame S's
+    two channels, 2 x 3,688^2). Bit-equal to the host's
+    ``normalize_planes_u8`` and to the plain twin on the card, then timed
+    with CUDA events over 100 calls (the twin over 3, the host's numpy
+    normalization, the work the kernel took over, by wall time over 3)
+    against its bound: 5 bytes a pixel (2 read for the min/max, 2 read and
+    1 written for the quantization)."""
+    import torch
+
+    from magnify_tpu_torch.ops import detect, edge
+
+    rec = {"name": "normalize_u8", "route": "CUDA",
+           "source": "magnify_tpu_torch/csrc/normalize_u8.cu",
+           "replaces": "magnify_tpu/ops/detect.py:992 normalize_planes_u8 "
+                       "(host twin of magnify_tpu/ops/edge.py:42 "
+                       "normalize_to_u8), for whole planes",
+           "launches_per_call": edge.NORMALIZE_U8_LAUNCHES_PER_CALL,
+           "bound_by": "bytes", "max_abs_err": 0}
+    for tag, raw in (("chip", frame_c()[0][:1]),
+                     ("beads", _frame_s_planes())):
+        raw = np.ascontiguousarray(raw)
+        host = detect.normalize_planes_u8(raw)
+        raw_dev = torch.from_numpy(raw).to(dev)
+        before = edge.normalize_u8_launches
+        got = edge.normalize_u8(raw_dev)
+        torch.cuda.synchronize()
+        if edge.normalize_u8_launches - before != rec["launches_per_call"]:
+            raise AssertionError("normalize_u8 did not launch its kernels")
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError(f"normalize_u8 != normalize_planes_u8 at "
+                                 f"{tag} {raw.shape}")
+        plain = edge.normalize_to_u8(raw_dev).to(torch.uint8)
+        if not torch.equal(got, plain):
+            raise AssertionError(f"normalize_u8 != its plain twin at {tag}")
+        del plain
+        ms = _event_ms(lambda: edge.normalize_u8(raw_dev), 100)
+        plain_ms = _event_ms(
+            lambda: edge.normalize_to_u8(raw_dev).to(torch.uint8), 3)
+        host_ms = _time_ms(lambda: detect.normalize_planes_u8(raw), 3)
+        bound_ms, _by = _bound(5 * raw.size, 0)
+        rec.update({f"ms_{tag}": round(ms, 4),
+                    f"plain_ms_{tag}": round(plain_ms, 4),
+                    f"host_ms_{tag}": round(host_ms, 2),
+                    f"bound_ms_{tag}": round(bound_ms, 5),
+                    f"bound_share_{tag}": round(bound_ms / ms, 4),
+                    f"shape_{tag}": list(raw.shape)})
+        _say(f"normalize_u8 at {tag} {raw.shape}: bit-equal; kernel "
+             f"{ms:.4f} ms, bound {bound_ms:.5f} ms "
+             f"({100 * bound_ms / ms:.1f}%), plain twin {plain_ms:.4f} ms, "
+             f"host numpy {host_ms:.2f} ms")
+        del raw_dev, got
+    return rec
+
+
 def kernel_phase(dev) -> list:
     strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
     strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
@@ -1190,25 +1263,35 @@ RANSAC = ("hysteresis", "perimeter_score")
 CONV = ("hysteresis", "ring_corr")  # RANSAC with the conv scorer
 
 
+#: Kernels with no batched-launch counter: one call normalizes a batch of
+#: planes with the same launches as one plane.
+UNBATCHED = ("normalize_u8",)
+
+
 class _Launches:
     """The kernels' launch counts over one path: zeroed on entry, read and
-    checked on exit: each kernel of ``kernels`` must have launched."""
+    checked on exit: each kernel of ``kernels`` must have launched, and the
+    uint8 normalization exactly ``normalize`` calls' worth."""
 
-    def __init__(self, by_path: dict, path: str, kernels=DENSE):
-        from magnify_tpu_torch.ops import hysteresis, score
+    def __init__(self, by_path: dict, path: str, kernels=DENSE,
+                 normalize: int = 0):
+        from magnify_tpu_torch.ops import edge, hysteresis, score
 
         # name: (module, its launch counter, its batched-launch counter)
         self.counters = {
             "hysteresis": (hysteresis, "launches", "batched_launches"),
             "ring_corr": (score, "launches", "batched_launches"),
             "perimeter_score": (score, "perimeter_launches",
-                                "perimeter_batched_launches")}
+                                "perimeter_batched_launches"),
+            "normalize_u8": (edge, "normalize_u8_launches", None)}
         self.by_path, self.path, self.kernels = by_path, path, kernels
+        self.normalize = normalize * edge.NORMALIZE_U8_LAUNCHES_PER_CALL
 
     def __enter__(self):
         for mod, total, batched in self.counters.values():
             setattr(mod, total, 0)
-            setattr(mod, batched, 0)
+            if batched is not None:
+                setattr(mod, batched, 0)
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -1220,12 +1303,17 @@ class _Launches:
         counts = {name: getattr(mod, total)
                   for name, (mod, total, _b) in self.counters.items()}
         batched = {f"{name}_batched": getattr(mod, b)
-                   for name, (mod, _t, b) in self.counters.items()}
+                   for name, (mod, _t, b) in self.counters.items()
+                   if b is not None}
         _say(f"kernel launches in {self.path}: {counts}, of them on a "
              f"batch of planes {batched}")
         for name in self.kernels:
             if counts[name] <= 0:
                 raise AssertionError(f"{self.path} never launched {name}")
+        if counts["normalize_u8"] != self.normalize:
+            raise AssertionError(
+                f"{self.path} launched normalize_u8 {counts['normalize_u8']} "
+                f"times, its route {self.normalize}")
         self.by_path[self.path] = counts
         self.by_path.setdefault("_batched", {})[self.path] = batched
         return False
@@ -1257,9 +1345,9 @@ def main_path(records: list, dev) -> None:
     # --- beads, frames A and B ------------------------------------------
     data_a = as_dataarray(mt, "A")
     data_b = as_dataarray(mt, "B")
-    with _Launches(by_path, "beads A"):
+    with _Launches(by_path, "beads A", normalize=1):
         xa = mt.beads(data_a, device=dev, **FRAME_A_KW)
-    with _Launches(by_path, "beads B"):
+    with _Launches(by_path, "beads B", normalize=1):
         xb = mt.beads(data_b, device=dev, **FRAME_B_KW)
     n_true = frame_a()[1]
     n_a = xa["roi"].sizes["mark"]
@@ -1282,6 +1370,7 @@ def main_path(records: list, dev) -> None:
     n_frames_m = 6
     frames_m = [as_dataarray(mt, "M", seed) for seed in range(n_frames_m)]
     data_m, n_true_m = frames_m[2], frame_m()[1]
+    # Frame M is float32: its search plane is normalized on the host.
     with _Launches(by_path, "mrbles M"):
         xm = _mrbles(mt, data_m, dev)
     tags = np.asarray(xm.tag.values)
@@ -1309,7 +1398,9 @@ def main_path(records: list, dev) -> None:
         raise AssertionError(f"beads_stream yielded {len(outs)} frames")
     for k, out in enumerate(outs):
         _assert_same_frame(f"beads_stream frame {k}", out, xa)
-    want = {k: n_stream_a * v for k, v in by_path["beads A"].items()}
+    # The stream normalizes its frames on the host.
+    want = dict({k: n_stream_a * v for k, v in by_path["beads A"].items()},
+                normalize_u8=0)
     if by_path[f"beads_stream {n_stream_a} x A"] != want:
         raise AssertionError(f"beads_stream launches != {want}")
     _say(f"beads_stream: {n_stream_a} frames equal the single-frame call, "
@@ -1376,6 +1467,8 @@ def main_path(records: list, dev) -> None:
         _say(f"{rec['name']}: {rec['launches_per_call']} launches per call, "
              f"{rec['launches']} in the main paths "
              f"{rec['launches_by_path']}")
+        if rec["name"] in UNBATCHED:
+            continue
         # The batched entry of the same kernel: its launches are those the
         # chip paths made on a batch of planes, its times those at frame
         # C's 1,568 chamber crops (frame C8's beside them).
@@ -1413,18 +1506,22 @@ def chip_paths(mt, dev, golden, by_path: dict, results: dict) -> dict:
     import torch
 
     from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.ops import edge
     from magnify_tpu_torch.ops import hysteresis as hyst
 
     # --- C8 and its variant: the golden file and the CPU -----------------
     per_channel = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 2,
                    "perimeter_score": 0}
+    # One normalization of all search planes of the searched timestep.
+    per_timestep = {"normalize_u8": edge.NORMALIZE_U8_LAUNCHES_PER_CALL}
     for case, path, n_search in (("C8", "chip_c8", 1),
                                  ("C8V", "chip_c8_2ch2t", 2)):
         data = as_dataarray(mt, case)
-        with _Launches(by_path, path):
+        with _Launches(by_path, path, normalize=1):
             xc = mt.microfluidic_chip(data, device=dev, **FRAME_C8_KW)
         # Per search channel: detection, and ONE call for all 64 crops.
-        want = {k: n_search * v for k, v in per_channel.items()}
+        want = dict({k: n_search * v for k, v in per_channel.items()},
+                    **per_timestep)
         if by_path[path] != want:
             raise AssertionError(f"{path} launches {by_path[path]} != {want}")
         n_marks = int(np.prod(C8_GRID))
@@ -1461,11 +1558,11 @@ def chip_paths(mt, dev, golden, by_path: dict, results: dict) -> dict:
                                     device=dev, **FRAME_C_KW)
 
     torch.cuda.reset_peak_memory_stats()
-    with _Launches(by_path, "chip_c"):
+    with _Launches(by_path, "chip_c", normalize=1):
         xc = run_c()
-    if by_path["chip_c"] != per_channel:
+    if by_path["chip_c"] != dict(per_channel, **per_timestep):
         raise AssertionError(f"chip_c launches {by_path['chip_c']} != "
-                             f"{per_channel}")
+                             f"{dict(per_channel, **per_timestep)}")
     peak = torch.cuda.max_memory_allocated()
     _check_frame_c("frame C", xc)
     results["C"] = xc
@@ -1537,6 +1634,7 @@ def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
     import torch
 
     from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.ops import edge
     from magnify_tpu_torch.ops import hysteresis as hyst
 
     conv = scorer == "conv"
@@ -1546,25 +1644,30 @@ def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
     kernels = CONV if conv else RANSAC
     hyst_call = hyst.LAUNCHES_PER_CALL
 
-    def launches(calls: int, scorer_launches: int) -> dict:
+    def launches(calls: int, scorer_launches: int,
+                 normalize: int = 0) -> dict:
         """One search channel: ``calls`` edge stacks (a whole plane, then
         for a chip ONE batch for all crops), each scored by one ring
         correlation (conv); or the perimeter scorer's launches (gather:
-        for a chip the crops' proposals and their hill-climb)."""
+        for a chip the crops' proposals and their hill-climb); and
+        ``normalize`` uint8 normalizations on the card (the bead finder's;
+        the RANSAC chip uploads its plane as f32)."""
         return {"hysteresis": calls * hyst_call,
                 "ring_corr": calls if conv else 0,
-                "perimeter_score": 0 if conv else scorer_launches}
+                "perimeter_score": 0 if conv else scorer_launches,
+                "normalize_u8": normalize
+                * edge.NORMALIZE_U8_LAUNCHES_PER_CALL}
 
     kw = dict(detector="ransac", device=dev)
     out_ms = {}
     with _scorer(scorer):
         data_a = as_dataarray(mt, "A")
         path = f"beads A ransac{tag}"
-        with _Launches(by_path, path, kernels):
+        with _Launches(by_path, path, kernels, normalize=1):
             xa = mt.beads(data_a, **kw, **FRAME_A_KW)
-        if by_path[path] != launches(1, 1):
+        if by_path[path] != launches(1, 1, 1):
             raise AssertionError(f"{path} launches {by_path[path]} != "
-                                 f"{launches(1, 1)}")
+                                 f"{launches(1, 1, 1)}")
         n_true, n_a = frame_a()[1], xa["roi"].sizes["mark"]
         _say(f"frame A, RANSAC ({scorer}): found {n_a}/{n_true} beads, roi "
              f"{xa['roi'].shape}")
@@ -1581,7 +1684,8 @@ def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
         if not conv:
             n_stream = 3
             path = f"beads_stream {n_stream} x A ransac"
-            with _Launches(by_path, path, kernels):
+            # The RANSAC stream runs the single-frame call frame by frame.
+            with _Launches(by_path, path, kernels, normalize=n_stream):
                 outs = list(mt.beads_stream([data_a] * n_stream, **kw,
                                             **FRAME_A_KW))
             if len(outs) != n_stream:
@@ -1696,7 +1800,8 @@ def ops_phase(mt, dev, by_path: dict) -> None:
     from magnify_tpu_torch.ops import hysteresis as hyst
 
     want = {"hysteresis": len(planes) * hyst.LAUNCHES_PER_CALL,
-            "ring_corr": len(planes), "perimeter_score": 0}
+            "ring_corr": len(planes), "perimeter_score": 0,
+            "normalize_u8": 0}
     if by_path[path] != want:
         raise AssertionError(f"{path} launches {by_path[path]} != {want}")
     for k, (c, s) in enumerate(res):
@@ -1753,7 +1858,7 @@ def basic_phase(mt, dev, golden, by_path: dict) -> None:
 
     data = as_dataarray(mt, "S")
     pipe = frame_s_pipe(mt, device=dev)
-    with _Launches(by_path, "beads S basic_correct"):
+    with _Launches(by_path, "beads S basic_correct", normalize=1):
         xs = pipe(data=data)
     yx = np.stack([np.asarray(xs.y.values, float),
                    np.asarray(xs.x.values, float)], axis=1)
@@ -2134,7 +2239,7 @@ def disk_paths(mt, dev, golden, by_path: dict, in_memory: dict,
                 path.parent.mkdir(parents=True, exist_ok=True)
                 write_tiff(path, tiles[ci, r, c], ome=False)
     path_b = str(tmp / "b" / "(channel)" / "tile_(row)_(col).tif")
-    with _Launches(by_path, "beads B from files"):
+    with _Launches(by_path, "beads B from files", normalize=1):
         xf = mt.beads(path_b, device=dev, **FRAME_B_KW)
     if not native.available():
         raise AssertionError(f"native IO library did not build: "
@@ -2178,7 +2283,7 @@ def disk_paths(mt, dev, golden, by_path: dict, in_memory: dict,
                                     pinlist=frame_c_pinlist(), device=dev,
                                     **FRAME_C_KW)
 
-    with _Launches(by_path, "chip_c from a TIFF"):
+    with _Launches(by_path, "chip_c from a TIFF", normalize=1):
         xc = run_c()
     _same_dataset("frame C from a TIFF", xc, in_memory["C"])
     ms_c = _time_ms(run_c, 2)
@@ -2657,7 +2762,7 @@ def main(argv) -> int:
             _say("  ptxas:", line.strip())
 
     dev = torch.device("cuda")
-    records = kernel_phase(dev)
+    records = kernel_phase(dev) + [_normalize_record(dev)]
     if "--kernels-only" in argv:
         _say(json.dumps({"kernels": records}))
         return 0

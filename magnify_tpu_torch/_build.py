@@ -42,6 +42,7 @@ _SIGNATURES = {
     "mg_ring_corr_smem": ([_I, _I], _I),
     "mg_perimeter_score": ([_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _I,
                             _I, _I, _P, _P], _I),
+    "mg_normalize_u8": ([_P, _I, _I, _I, _P, _P, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -4,7 +4,11 @@ on one device, with the dense or the RANSAC detector.
 :class:`BeadFinder` is the torch port of the in-memory dense path of
 ``magnify_tpu.components.find.BeadFinder`` (``_fused_dense``):
 
-* host: uint8 normalization of the search planes (t = 0);
+* uint8 normalization of the search planes (t = 0): uint16 planes go to
+  the device raw and are normalized there
+  (:func:`magnify_tpu_torch.ops.detect.upload_planes_u8`, the same
+  bits); planes of other dtypes, and every plane under a mesh, in the
+  tuning UI, the stream and out of core, on the host;
 * device: per-channel dense detection + greedy NMS
   (:func:`magnify_tpu_torch.ops.detect.detect_dense`), then the
   cross-channel dedupe (a circle within ``2 * min_radius`` of a surviving
@@ -292,7 +296,7 @@ class BeadFinder:
             return self._out_of_core(assay)
         image_np, planes = self._host_planes(assay)
         if self.gui is not None:
-            beads = self._detect_each(planes)
+            beads = self._detect_each(ops_detect.normalize_planes_u8(planes))
         else:
             beads = self.detect(planes)
         return self._assemble(assay, image_np, beads)
@@ -303,12 +307,10 @@ class BeadFinder:
                 for c in search_channels]
 
     def _host_planes(self, assay):
-        """Host phase of one frame: the image stack in memory and its uint8
+        """Host phase of one frame: the image stack in memory and its raw
         search planes (S, H, W) at t = 0."""
         image_np = np.ascontiguousarray(assay.image.to_numpy())
-        planes = ops_detect.normalize_planes_u8(
-            image_np[self._search_idxs(assay), 0])
-        return image_np, planes
+        return image_np, image_np[self._search_idxs(assay), 0]
 
     def _out_of_core(self, assay):
         """A stack above :data:`MAX_RESIDENT_BYTES`: each search plane read
@@ -443,18 +445,23 @@ class BeadFinder:
         if _stack_bytes(assay) > MAX_RESIDENT_BYTES:
             return (assay, None, None, None)
         image_np, planes = self._host_planes(assay)
+        planes = ops_detect.normalize_planes_u8(planes)
         diagnostics.count("upload_bytes", planes.nbytes)
         return (assay, image_np) + uploader.upload(planes)
 
     def detect(self, planes: np.ndarray) -> np.ndarray:
-        """Detection on uint8 search planes (S, H, W): the (n, 3) int32
-        (row, col, radius) marks, channel-major, best first."""
+        """Detection on raw search planes (S, H, W), normalized to uint8
+        where :func:`magnify_tpu_torch.ops.detect.upload_planes_u8` decides:
+        the (n, 3) int32 (row, col, radius) marks, channel-major, best
+        first."""
         from magnify_tpu_torch.parallel import mesh as mesh_mod
 
-        if mesh_mod.sharded_mesh() is None:
+        if mesh_mod.sharded_mesh() is not None:
+            # The mesh cuts the host's planes into its bands.
+            planes, _n = ops_detect.upload_planes_u8(planes, None)
+        else:
             with diagnostics.span("beads.upload"):
-                planes = torch.as_tensor(planes).to(self.device)
-        diagnostics.count("upload_bytes", planes.nbytes)
+                planes, _n = ops_detect.upload_planes_u8(planes, self.device)
         return self.detect_planes(planes)
 
     @diagnostics.span("beads.detect", device=True)
@@ -1049,31 +1056,35 @@ class ButtonFinder:
         """One chip timestep: :func:`chip_fused` on ``self.device`` (over
         the active mesh, if it has more than one device), then host crops at
         the refined centers plus the fg/bg rasters. Only the search planes
-        go to the device, quantized on the host to uint8 (exactly the
-        device's own normalization) or, where rare outliers compress the
-        useful range, to uint16
+        go to the device, quantized to uint8 (exactly the device's own
+        normalization) or, where rare outliers compress the useful range,
+        on the host to uint16
         (:func:`magnify_tpu_torch.ops.detect.choose_upload_precision`); the
-        other channels' ROI crops are host slices."""
+        other channels' ROI crops are host slices. The uint8 planes are made
+        where :func:`magnify_tpu_torch.ops.detect.upload_planes_u8`
+        decides."""
         from magnify_tpu_torch.parallel import mesh as mesh_mod
 
         num_rows, num_cols = tag.shape
         L = self.roi_length
         h, w = images_np.shape[-2:]
 
+        mesh = mesh_mod.sharded_mesh()
         with diagnostics.span("chip.normalize_upload") as upload:
             raw_planes = np.ascontiguousarray(images_np[list(search_idxs)])
             precision = ops_detect.choose_upload_precision(raw_planes)
             normalized = precision == "u8"
             if normalized:
-                planes_q = ops_detect.normalize_planes_u8(raw_planes)
-                planes_dev = torch.as_tensor(planes_q).to(self.device)
+                planes_dev, upload_bytes = ops_detect.upload_planes_u8(
+                    raw_planes, self.device, mesh)
             else:
                 # uint16 values, carried as f32 (exact): torch indexes no
                 # uint16 tensors.
                 planes_q = ops_detect.normalize_planes_u16(raw_planes)
                 planes_dev = torch.as_tensor(
                     planes_q.astype(np.float32)).to(self.device)
-        diagnostics.count("upload_bytes", planes_dev.nbytes)
+                diagnostics.count("upload_bytes", planes_dev.nbytes)
+                upload_bytes = planes_q.nbytes
 
         with diagnostics.span("chip.dispatch", self.device) as dispatch:
             for chamber, total, count, dist in (
@@ -1103,7 +1114,7 @@ class ButtonFinder:
                 chamber_radius=int(self.chamber_radius),
                 min_radius=self.min_button_radius,
                 max_radius=self.max_button_radius, roi_length=L,
-                normalized=normalized, mesh=mesh_mod.sharded_mesh())
+                normalized=normalized, mesh=mesh)
             circle = out["circle"].cpu().numpy()
             score = out["score"].cpu().numpy()
             mark_x = out["mark_x"].cpu().numpy()
@@ -1126,7 +1137,7 @@ class ButtonFinder:
                                           mark_x, mark_y, mark_x, mark_y)
         last_chip_timings.clear()
         last_chip_timings.update(
-            upload_bytes=int(planes_q.nbytes),
+            upload_bytes=int(upload_bytes),
             upload_precision=precision,
             normalize_upload_s=round(upload.seconds, 6),
             dispatch_pull_s=round(dispatch.seconds, 6),

@@ -13,10 +13,12 @@ Torch port of ``magnify_tpu.ops.detect``'s dense path
 (``_dense_candidates`` and ``_stage_dense_full``), the batched per-ROI
 detector of the chip path (``_detect_rois_dense``), and the host
 quantizations of the search planes (``normalize_planes_u8``/``_u16``,
-``choose_upload_precision``). The JAX package sizes its survivor
-buffers with a memoized static cap and a grow-retry (a jit needs static
-shapes); eager torch takes the survivors with ``torch.nonzero``, so there
-is no cap to grow and the result equals the JAX result at an adequate cap.
+``choose_upload_precision``) and ``upload_planes_u8``, which decides
+whether the uint8 planes are made on the host or on the device. The JAX
+package sizes its survivor buffers with a memoized static cap and a
+grow-retry (a jit needs static shapes); eager torch takes the survivors
+with ``torch.nonzero``, so there is no cap to grow and the result equals
+the JAX result at an adequate cap.
 
 The RANSAC detector is the port of ``find_circles``' RANSAC branch
 (``_stage_ransac_packed`` and ``ransac_score_pack``) and of the per-ROI
@@ -45,7 +47,7 @@ import torch.nn.functional as F
 
 from magnify_tpu_torch import diagnostics
 from magnify_tpu_torch.ops import prng
-from magnify_tpu_torch.ops.edge import edge_pipeline
+from magnify_tpu_torch.ops.edge import edge_pipeline, normalize_u8
 from magnify_tpu_torch.ops.nms import parallel_greedy_nms
 from magnify_tpu_torch.ops.ransac import candidate_circles
 from magnify_tpu_torch.ops.score import (dedupe_circles, gather_map_scores,
@@ -56,7 +58,7 @@ __all__ = ["choose_upload_precision", "dense_candidates",
            "detect_rois_dense", "detect_rois_ransac",
            "find_circles", "find_circles_stack", "normalize_planes_u16",
            "normalize_planes_u8", "ransac_plane", "resolve_detector",
-           "select_ransac", "use_conv_scorer"]
+           "select_ransac", "upload_planes_u8", "use_conv_scorer"]
 
 #: The JAX package's per-ROI unique cap (``detect_best_in_rois``).
 ROI_UNIQUE_CAP = 4096
@@ -98,13 +100,49 @@ def resolve_detector(detector: str = "auto") -> str:
 @diagnostics.span("detect.normalize_u8")
 def normalize_planes_u8(images: np.ndarray) -> np.ndarray:
     """Per-plane min-max normalization to uint8 with trunc cast (f32 math,
-    bit-identical to the JAX package's host and device normalizations)."""
+    bit-identical to the JAX package's host and device normalizations).
+    Counts its planes in ``normalize_u8_host_planes``."""
+    diagnostics.count("normalize_u8_host_planes",
+                      int(np.prod(images.shape[:-2])))
     x = images.astype(np.float32)
     x -= x.min(axis=(-2, -1), keepdims=True)
     peak = x.max(axis=(-2, -1), keepdims=True)
     with np.errstate(invalid="ignore", divide="ignore"):
         x = np.where(peak > 0, 255.0 * x / peak, x)
     return np.trunc(x).astype(np.uint8)
+
+
+def upload_planes_u8(raw: np.ndarray, device, mesh=None):
+    """The uint8 search planes of ``raw`` (S, H, W) for detection on
+    ``device``, bit for bit those of :func:`normalize_planes_u8`, and the
+    bytes copied to the device, also counted in ``upload_bytes``:
+    ``(planes, nbytes)``.
+
+    The one place that decides where the normalization runs. uint16 planes
+    without a ``mesh`` go to ``device`` as they are (2 bytes a pixel) and
+    are normalized there by :func:`magnify_tpu_torch.ops.edge.normalize_u8`
+    (the CUDA kernel, or its plain twin on the CPU) under the span
+    ``detect.normalize_u8``, their planes counted in
+    ``normalize_u8_device_planes``; the raw device planes are freed on
+    return, before the caller's detection starts, so they never live at the
+    detector's peak. Planes of other dtypes, and every plane under a mesh,
+    are normalized on the host and copied to ``device``; with ``device``
+    None they stay on the host (a mesh cuts them into its bands) and the
+    count is of the host planes."""
+    if device is not None and mesh is None and raw.dtype == np.uint16:
+        raw_dev = torch.from_numpy(np.ascontiguousarray(raw)).to(device)
+        nbytes = raw_dev.nbytes
+        with diagnostics.span("detect.normalize_u8", device=raw_dev.device):
+            planes = normalize_u8(raw_dev)
+        del raw_dev
+        diagnostics.count("normalize_u8_device_planes", planes.shape[0])
+    else:
+        planes = normalize_planes_u8(raw)
+        if device is not None:
+            planes = torch.as_tensor(planes).to(device)
+        nbytes = planes.nbytes
+    diagnostics.count("upload_bytes", nbytes)
+    return planes, nbytes
 
 
 def normalize_planes_u16(images: np.ndarray) -> np.ndarray:

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from magnify_tpu_torch import _build
 from magnify_tpu_torch.ops.hysteresis import hysteresis
 
 __all__ = [
@@ -36,7 +37,10 @@ __all__ = [
     "gaussian_blur5_u8",
     "histogram_quantile",
     "histogram_quantiles",
+    "NORMALIZE_U8_LAUNCHES_PER_CALL",
     "normalize_to_u8",
+    "normalize_u8",
+    "normalize_u8_launches",
     "scharr",
     "sqrt_f32",
 ]
@@ -46,6 +50,11 @@ _GAUSS5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
 _SMOOTH = np.array([3.0, 10.0, 3.0], dtype=np.float32)
 _DERIV = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
 _TG22 = 13573  # tan(22.5 deg) in Q15, as used by OpenCV's Canny.
+
+#: Kernel launches of :func:`normalize_u8` since the count was last reset.
+normalize_u8_launches = 0
+#: Kernel launches of one call on a non-empty batch: min/max, quantize.
+NORMALIZE_U8_LAUNCHES_PER_CALL = 2
 
 
 def normalize_to_u8(img: torch.Tensor) -> torch.Tensor:
@@ -57,6 +66,50 @@ def normalize_to_u8(img: torch.Tensor) -> torch.Tensor:
     x = x - x.amin(dim=(-2, -1), keepdim=True)
     peak = x.amax(dim=(-2, -1), keepdim=True)
     return torch.trunc(torch.where(peak > 0, 255.0 * x / peak, x))
+
+
+def normalize_u8(planes: torch.Tensor) -> torch.Tensor:
+    """uint8 planes from uint16 planes (H, W) or (N, H, W), each min-max
+    normalized on its own: :func:`normalize_to_u8` cast to uint8, bit for
+    bit, and so the uint8 planes the host gives
+    (:func:`magnify_tpu_torch.ops.detect.normalize_planes_u8`).
+
+    CUDA tensors take the kernel (``csrc/normalize_u8.cu``):
+    :data:`NORMALIZE_U8_LAUNCHES_PER_CALL` launches on the current stream,
+    no host sync. CPU tensors take the plain twin, :func:`normalize_to_u8`.
+    """
+    global normalize_u8_launches
+    if planes.dtype != torch.uint16:
+        raise TypeError(f"normalize_u8: uint16 planes required, got "
+                        f"{planes.dtype}")
+    if planes.ndim not in (2, 3):
+        raise ValueError(f"normalize_u8: shape {tuple(planes.shape)}; one "
+                         "(H, W) or (N, H, W) shape required")
+    if planes.device.type == "cpu":
+        return normalize_to_u8(planes).to(torch.uint8)
+    if planes.device.type != "cuda":
+        raise ValueError(f"normalize_u8: a tensor on {planes.device}; a "
+                         "CUDA device (or the CPU) required")
+    if not planes.is_contiguous():
+        raise ValueError("normalize_u8: contiguous planes required")
+    n_planes = planes.shape[0] if planes.ndim == 3 else 1
+    h, w = planes.shape[-2:]
+    if n_planes > 65535 or h * w >= 2**31:
+        raise ValueError(f"normalize_u8: {n_planes} plane(s) of {h}x{w}; at "
+                         "most 65,535 planes of under 2^31 pixels")
+    out = torch.empty(planes.shape, dtype=torch.uint8, device=planes.device)
+    if out.numel() == 0:
+        return out
+    stats = torch.empty(2 * n_planes, dtype=torch.int32,
+                        device=planes.device)
+    with torch.cuda.device(planes.device):  # the launch goes to its card
+        err = _build.load().mg_normalize_u8(
+            planes.data_ptr(), n_planes, h, w, stats.data_ptr(),
+            out.data_ptr(),
+            torch.cuda.current_stream(planes.device).cuda_stream)
+    normalize_u8_launches += NORMALIZE_U8_LAUNCHES_PER_CALL
+    _build.check(err, "mg_normalize_u8")
+    return out
 
 
 def _sepconv(img: torch.Tensor, krow, kcol) -> torch.Tensor:

@@ -2,7 +2,8 @@
 ``cuda``).
 
 Each kernel against its plain twin, bit for bit, at small shapes that
-stress the tiling (tile borders, ragged edges, chains across many tiles);
+stress the tiling (tile borders, ragged edges, chains across many tiles;
+the uint8 normalization also off 16-byte alignment);
 ``beads``, ``mrbles`` and ``microfluidic_chip`` with ``device="cuda"``
 against ``device="cpu"`` on the end-to-end fixtures of test_torch_slice and
 test_torch_chip, with the dense and the RANSAC detector; the RANSAC stages
@@ -26,6 +27,8 @@ import pytest
 import torch
 
 from magnify_tpu_torch.components import identify as tid
+from magnify_tpu_torch.ops import detect as tdetect
+from magnify_tpu_torch.ops import edge as tedge
 from magnify_tpu_torch.ops import hysteresis as thyst
 from magnify_tpu_torch.ops import reduce as treduce
 from magnify_tpu_torch.ops import score as tscore
@@ -308,7 +311,36 @@ def test_ransac_stages_on_the_card_equal_the_cpu(cuda):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("case", ["constant", "extremes", "exact_integers",
+                                  "random", "random_dim", "width_1",
+                                  "width_7", "width_8", "width_6755",
+                                  "two_planes_two_ranges", "large"])
+def test_normalize_u8_kernel_matches_plain(cuda, case, offset):
+    """The kernel against the host's planes and the plain twin on the card,
+    each input placed ``offset`` pixels past a 16-byte boundary (a view)."""
+    from test_torch_normalize import plane
+
+    raw = (np.random.default_rng(4).normal(100, 5, (2, 517, 6755))
+           .clip(0).astype(np.uint16) if case == "large" else plane(case))
+    buf = torch.empty(offset + raw.size, dtype=torch.uint16, device=cuda)
+    buf[offset:] = torch.from_numpy(raw.reshape(-1)).to(cuda)
+    view = buf[offset:].view(raw.shape)
+    before = tedge.normalize_u8_launches
+    got = tedge.normalize_u8(view)
+    assert (tedge.normalize_u8_launches - before
+            == tedge.NORMALIZE_U8_LAUNCHES_PER_CALL)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  tdetect.normalize_planes_u8(raw))
+    assert torch.equal(got, tedge.normalize_to_u8(view).to(torch.uint8))
+
+
 def test_wrappers_check_types(cuda):
+    with pytest.raises(TypeError):
+        tedge.normalize_u8(torch.zeros((8, 8), device=cuda))
+    with pytest.raises(ValueError):
+        tedge.normalize_u8(torch.zeros((8, 8), dtype=torch.uint16,
+                                       device=cuda)[:, ::2])
     with pytest.raises(TypeError):
         thyst.hysteresis(torch.zeros((8, 8), device=cuda),
                          torch.zeros((8, 8), device=cuda))

@@ -262,9 +262,10 @@ def test_upload_bytes_counts_the_uploaded_planes(chip_spans, traced):
     import magnify_tpu_torch as mt
 
     _records, counters = chip_spans
-    # One uint8 search plane and the grid fit's f32 points per row and
-    # column (2 + 2).
-    assert counters["upload_bytes"] == 240 * 240 + 4 * 4
+    # One raw uint16 search plane (normalized on the device) and the grid
+    # fit's f32 points per row and column (2 + 2).
+    assert counters["upload_bytes"] == 2 * 240 * 240 + 4 * 4
+    assert counters["normalize_u8_device_planes"] == 1
 
     rng = np.random.default_rng(5)
     img = rng.normal(100, 4, (2, 96, 96)).astype(np.uint16)
@@ -274,7 +275,8 @@ def test_upload_bytes_counts_the_uploaded_planes(chip_spans, traced):
                           coords={"channel": ["a", "b"]}),
              min_bead_diameter=10, max_bead_diameter=14, overlap=0,
              device="cpu")
-    assert diagnostics.counter_report() == {"upload_bytes": 2 * 96 * 96}
+    assert diagnostics.counter_report() == {
+        "upload_bytes": 2 * 2 * 96 * 96, "normalize_u8_device_planes": 2}
     names = {r.name for r in diagnostics.spans()}
     assert {"beads.upload", "beads.detect", "beads.finalize_host",
             "beads.assemble", "detect.normalize_u8"} <= names
