@@ -40,7 +40,9 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    operations it must do. The uint8 normalization kernel runs at the
    dense finders' search planes (frame C's 1 x 7,187 x 6,755 and frame
    S's stitched 2 x 3,688^2), bit-equal to the host's
-   ``normalize_planes_u8`` and to its plain twin, timed beside both;
+   ``normalize_planes_u8`` and to its plain twin, timed beside both. The
+   bead ownership kernel runs at frame S's drawn beads and at the bead
+   cell's 1,764 marks, bit-equal to its CPU branch, timed beside it;
 3. main paths, each driven with the kernels' launch counts set to 0 just
    before and read just after; every dense path must have launched
    hysteresis and ring_corr, every RANSAC path hysteresis and
@@ -49,7 +51,10 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    without a mesh or the tuning UI gets uint16 search planes (beads A and
    B, RANSAC beads A, the chips' dense timesteps, the disk paths, frame S),
    never in the streams, under a mesh, out of core, in the tuning UI or on
-   frame M (float32, so its planes are normalized on the host):
+   frame M (float32, so its planes are normalized on the host); and the
+   bead ownership kernel once a bead frame (every ``beads`` and ``mrbles``
+   path, their streams, meshes, RANSAC, tuning UI and out-of-core runs)
+   and never in a chip or ``find_circles`` path:
 
    * ``beads`` on frame A (1024^2, 110 beads) and frame B (2 channels,
      2 x 2 tiles of 1024^2, overlap 102, stitched to 1844^2) on ``cuda``;
@@ -159,7 +164,10 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    circle of each under ``plan``; ``redesigned``), and its batched entry
    has frame C's chamber batch under the plain keys; normalize_u8's has
    ``ms``/``plain_ms``/``host_ms``/``bound_ms``/``bound_share`` with
-   ``_chip`` and ``_beads``, and no batched entry) and,
+   ``_chip`` and ``_beads``, and no batched entry, and bead_ownership's
+   ``ms``/``profiler_ms``/``host_ms``/``bound_ms``/``bound_share`` with
+   ``_frame_s`` (frame S's drawn beads) and ``_cell`` (the bead cell's
+   1,764 marks on 3,688^2)) and,
    last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -169,7 +177,7 @@ phase 2. ``--out-of-core DIR`` is the child of the out-of-core phase, and
 ``--out-of-core DIR --mesh`` the one of the mesh phase.
 
 The frame functions (:func:`frame_a`, :func:`frame_b`, :func:`frame_m`,
-:func:`frame_c8`, :func:`frame_c`, :func:`frame_s`) need
+:func:`frame_c8`, :func:`frame_c`, :func:`frame_s`, :func:`cell_marks`) need
 numpy and the port's copy of the library rasterizer only, so the golden-file
 script imports them from here.
 """
@@ -473,6 +481,20 @@ def frame_s_pipe(pkg, **kw):
     pipe.add_pipe("basic_correct", after="standardize_format",
                   **{k: v for k, v in kw.items() if k == "device"})
     return pipe
+
+
+def cell_marks(seed: int = 0, side: int = 3688, pitch: int = 88,
+               jitter: int = 8) -> np.ndarray:
+    """Bead marks (n, 3) int32 (row, col, radius) laid out as the bead
+    cell's: a grid of ``pitch`` jittered by up to ``jitter`` on a
+    ``side``^2 plane (1,764 marks at 3,688^2), radii 5-15."""
+    rng = np.random.default_rng(seed)
+    centres = np.arange(pitch // 2, side - pitch // 4, pitch)
+    yy, xx = np.meshgrid(centres, centres, indexing="ij")
+    n = yy.size
+    return np.stack([yy.ravel() + rng.integers(-jitter, jitter + 1, n),
+                     xx.ravel() + rng.integers(-jitter, jitter + 1, n),
+                     rng.integers(5, 16, n)], 1).astype(np.int32)
 
 
 def as_dataarray(pkg, case: str, seed=None):
@@ -999,8 +1021,9 @@ def _small_radius_calls(dev) -> list:
     return calls
 
 
-def _profiled_kernel_ms(fn, reps: int) -> tuple:
-    """Device time of one launch of the scorer's kernel, from
+def _profiled_kernel_ms(fn, reps: int, kernel: str = "perimeter") -> tuple:
+    """Device time of one launch of the kernel whose name holds ``kernel``
+    (the scorer's by default), from
     ``torch.profiler`` over ``reps`` calls after one warm-up call (the
     mean over the launches it recorded; it may drop some when calls come
     this fast): (ms, launches recorded), or (None, 0) if it recorded no
@@ -1016,7 +1039,7 @@ def _profiled_kernel_ms(fn, reps: int) -> tuple:
         torch.cuda.synchronize()
     us, count = 0.0, 0
     for evt in prof.key_averages():
-        if "perimeter" not in evt.key:
+        if kernel not in evt.key:
             continue
         us += getattr(evt, "device_time_total", None) or getattr(
             evt, "cuda_time_total", 0.0)
@@ -1188,6 +1211,67 @@ def _normalize_record(dev) -> dict:
     return rec
 
 
+def _ownership_record(dev) -> dict:
+    """The bead ownership kernel on frame S's 3,688^2 plane: at frame S's
+    drawn beads (L = 48, radii to 12) and at the bead cell's layout
+    (1,764 marks, L = 60, radii to 15). Bit-equal to the wrapper's CPU
+    branch (the host's numpy pass, the work the kernel took over), then
+    timed with CUDA events over 100 calls and the kernel alone by
+    ``torch.profiler`` over 100 (the CPU branch by wall time over 3)
+    against its bound (the share is of the profiler's time): the masks
+    written once (2 L^2 bytes a mark) and the marks and corners read once
+    (20 bytes a mark)."""
+    import torch
+
+    from magnify_tpu_torch.components import find
+    from magnify_tpu_torch.ops import geom
+
+    rec = {"name": "bead_ownership", "route": "CUDA",
+           "source": "magnify_tpu_torch/csrc/bead_ownership.cu",
+           "replaces": "no TPU kernel: the host's ownership masks, "
+                       "magnify_tpu/components/find.py:298",
+           "launches_per_call": 1, "bound_by": "bytes", "max_abs_err": 0}
+    side = S_GRID * (TILE - OVERLAP_B)  # the stitched plane, 3,688
+    for tag, marks, L, max_radius in (
+            ("frame_s", frame_s()[1].astype(np.int32), 48, 12),
+            ("cell", cell_marks(), 60, 15)):
+        n = len(marks)
+        tops, lefts = find._bead_windows(marks, side, side, L)
+        host = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                for a in (marks, tops, lefts)]
+        want = geom.bead_ownership(*host, L, max_radius)
+        args = [a.to(dev) for a in host]
+        before = geom.bead_ownership_launches
+        got = geom.bead_ownership(*args, L, max_radius)
+        torch.cuda.synchronize()
+        if geom.bead_ownership_launches - before != 1:
+            raise AssertionError("bead_ownership did not launch its kernel")
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"bead_ownership on the card != its CPU "
+                                 f"branch at {tag} ({n} marks, L = {L})")
+        ms = _event_ms(lambda: geom.bead_ownership(*args, L, max_radius), 100)
+        kernel_ms, _count = _profiled_kernel_ms(
+            lambda: geom.bead_ownership(*args, L, max_radius), 100,
+            "bead_ownership")
+        host_ms = _time_ms(lambda: geom.bead_ownership(*host, L, max_radius),
+                           3)
+        bound_ms, _by = _bound(2 * n * L * L + 20 * n, 0)
+        share = bound_ms / (kernel_ms or ms)
+        rec.update({f"ms_{tag}": round(ms, 4),
+                    f"profiler_ms_{tag}": kernel_ms and round(kernel_ms, 4),
+                    f"host_ms_{tag}": round(host_ms, 2),
+                    f"bound_ms_{tag}": round(bound_ms, 5),
+                    f"bound_share_{tag}": round(share, 4),
+                    f"shape_{tag}": [n, L, max_radius]})
+        _say(f"bead_ownership at {tag} ({n} marks, L = {L}, max radius "
+             f"{max_radius}): bit-equal; a call {ms:.4f} ms (events), the "
+             f"kernel {kernel_ms or float('nan'):.4f} ms (profiler), bound "
+             f"{bound_ms:.5f} ms ({100 * share:.1f}%), the CPU branch "
+             f"(host numpy) {host_ms:.2f} ms")
+        del args, got
+    return rec
+
+
 def kernel_phase(dev) -> list:
     strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
     strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
@@ -1264,18 +1348,20 @@ CONV = ("hysteresis", "ring_corr")  # RANSAC with the conv scorer
 
 
 #: Kernels with no batched-launch counter: one call normalizes a batch of
-#: planes with the same launches as one plane.
-UNBATCHED = ("normalize_u8",)
+#: planes with the same launches as one plane, and one call makes every
+#: window's ownership masks.
+UNBATCHED = ("normalize_u8", "bead_ownership")
 
 
 class _Launches:
     """The kernels' launch counts over one path: zeroed on entry, read and
-    checked on exit: each kernel of ``kernels`` must have launched, and the
-    uint8 normalization exactly ``normalize`` calls' worth."""
+    checked on exit: each kernel of ``kernels`` must have launched, the
+    uint8 normalization exactly ``normalize`` calls' worth and the bead
+    ownership kernel exactly ``beads`` times (once a bead frame)."""
 
     def __init__(self, by_path: dict, path: str, kernels=DENSE,
-                 normalize: int = 0):
-        from magnify_tpu_torch.ops import edge, hysteresis, score
+                 normalize: int = 0, beads: int = 0):
+        from magnify_tpu_torch.ops import edge, geom, hysteresis, score
 
         # name: (module, its launch counter, its batched-launch counter)
         self.counters = {
@@ -1283,9 +1369,12 @@ class _Launches:
             "ring_corr": (score, "launches", "batched_launches"),
             "perimeter_score": (score, "perimeter_launches",
                                 "perimeter_batched_launches"),
-            "normalize_u8": (edge, "normalize_u8_launches", None)}
+            "normalize_u8": (edge, "normalize_u8_launches", None),
+            "bead_ownership": (geom, "bead_ownership_launches", None)}
         self.by_path, self.path, self.kernels = by_path, path, kernels
-        self.normalize = normalize * edge.NORMALIZE_U8_LAUNCHES_PER_CALL
+        self.want = {
+            "normalize_u8": normalize * edge.NORMALIZE_U8_LAUNCHES_PER_CALL,
+            "bead_ownership": beads}
 
     def __enter__(self):
         for mod, total, batched in self.counters.values():
@@ -1310,10 +1399,11 @@ class _Launches:
         for name in self.kernels:
             if counts[name] <= 0:
                 raise AssertionError(f"{self.path} never launched {name}")
-        if counts["normalize_u8"] != self.normalize:
-            raise AssertionError(
-                f"{self.path} launched normalize_u8 {counts['normalize_u8']} "
-                f"times, its route {self.normalize}")
+        for name, want in self.want.items():
+            if counts[name] != want:
+                raise AssertionError(f"{self.path} launched {name} "
+                                     f"{counts[name]} times, its route "
+                                     f"{want}")
         self.by_path[self.path] = counts
         self.by_path.setdefault("_batched", {})[self.path] = batched
         return False
@@ -1345,9 +1435,9 @@ def main_path(records: list, dev) -> None:
     # --- beads, frames A and B ------------------------------------------
     data_a = as_dataarray(mt, "A")
     data_b = as_dataarray(mt, "B")
-    with _Launches(by_path, "beads A", normalize=1):
+    with _Launches(by_path, "beads A", normalize=1, beads=1):
         xa = mt.beads(data_a, device=dev, **FRAME_A_KW)
-    with _Launches(by_path, "beads B", normalize=1):
+    with _Launches(by_path, "beads B", normalize=1, beads=1):
         xb = mt.beads(data_b, device=dev, **FRAME_B_KW)
     n_true = frame_a()[1]
     n_a = xa["roi"].sizes["mark"]
@@ -1371,7 +1461,7 @@ def main_path(records: list, dev) -> None:
     frames_m = [as_dataarray(mt, "M", seed) for seed in range(n_frames_m)]
     data_m, n_true_m = frames_m[2], frame_m()[1]
     # Frame M is float32: its search plane is normalized on the host.
-    with _Launches(by_path, "mrbles M"):
+    with _Launches(by_path, "mrbles M", beads=1):
         xm = _mrbles(mt, data_m, dev)
     tags = np.asarray(xm.tag.values)
     found, outliers = len(tags), int((tags == "outlier").sum())
@@ -1391,7 +1481,8 @@ def main_path(records: list, dev) -> None:
 
     # --- streams ----------------------------------------------------------
     n_stream_a = 8
-    with _Launches(by_path, f"beads_stream {n_stream_a} x A"):
+    with _Launches(by_path, f"beads_stream {n_stream_a} x A",
+                   beads=n_stream_a):
         outs = list(mt.beads_stream([data_a] * n_stream_a, device=dev,
                                     **FRAME_A_KW))
     if len(outs) != n_stream_a:
@@ -1418,7 +1509,7 @@ def main_path(records: list, dev) -> None:
     # stream's expected count and are not a path of their own.
     serial_m: dict = {}
     singles_path = f"{n_frames_m} single mrbles calls, seeds 0-5"
-    with _Launches(serial_m, singles_path):
+    with _Launches(serial_m, singles_path, beads=n_frames_m):
         singles_m = [_mrbles(mt, frame, dev) for frame in frames_m]
     per_frame_m = serial_m[singles_path]
     spectra, codes = mrbles_csvs()  # one pair of handles for every frame
@@ -1427,7 +1518,8 @@ def main_path(records: list, dev) -> None:
         return list(mt.mrbles_stream(frames_m, spectra=spectra, codes=codes,
                                      device=dev, **FRAME_M_KW))
 
-    with _Launches(by_path, f"mrbles_stream {n_frames_m} x M"):
+    with _Launches(by_path, f"mrbles_stream {n_frames_m} x M",
+                   beads=n_frames_m):
         outs_m = stream_m()
     if len(outs_m) != n_frames_m:
         raise AssertionError(f"mrbles_stream yielded {len(outs_m)} frames")
@@ -1510,8 +1602,9 @@ def chip_paths(mt, dev, golden, by_path: dict, results: dict) -> dict:
     from magnify_tpu_torch.ops import hysteresis as hyst
 
     # --- C8 and its variant: the golden file and the CPU -----------------
+    # A chip makes no bead ownership masks.
     per_channel = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 2,
-                   "perimeter_score": 0}
+                   "perimeter_score": 0, "bead_ownership": 0}
     # One normalization of all search planes of the searched timestep.
     per_timestep = {"normalize_u8": edge.NORMALIZE_U8_LAUNCHES_PER_CALL}
     for case, path, n_search in (("C8", "chip_c8", 1),
@@ -1644,30 +1737,32 @@ def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
     kernels = CONV if conv else RANSAC
     hyst_call = hyst.LAUNCHES_PER_CALL
 
-    def launches(calls: int, scorer_launches: int,
-                 normalize: int = 0) -> dict:
+    def launches(calls: int, scorer_launches: int, normalize: int = 0,
+                 beads: int = 0) -> dict:
         """One search channel: ``calls`` edge stacks (a whole plane, then
         for a chip ONE batch for all crops), each scored by one ring
         correlation (conv); or the perimeter scorer's launches (gather:
-        for a chip the crops' proposals and their hill-climb); and
+        for a chip the crops' proposals and their hill-climb);
         ``normalize`` uint8 normalizations on the card (the bead finder's;
-        the RANSAC chip uploads its plane as f32)."""
+        the RANSAC chip uploads its plane as f32); and ``beads`` bead
+        frames' ownership masks."""
         return {"hysteresis": calls * hyst_call,
                 "ring_corr": calls if conv else 0,
                 "perimeter_score": 0 if conv else scorer_launches,
                 "normalize_u8": normalize
-                * edge.NORMALIZE_U8_LAUNCHES_PER_CALL}
+                * edge.NORMALIZE_U8_LAUNCHES_PER_CALL,
+                "bead_ownership": beads}
 
     kw = dict(detector="ransac", device=dev)
     out_ms = {}
     with _scorer(scorer):
         data_a = as_dataarray(mt, "A")
         path = f"beads A ransac{tag}"
-        with _Launches(by_path, path, kernels, normalize=1):
+        with _Launches(by_path, path, kernels, normalize=1, beads=1):
             xa = mt.beads(data_a, **kw, **FRAME_A_KW)
-        if by_path[path] != launches(1, 1, 1):
+        if by_path[path] != launches(1, 1, 1, 1):
             raise AssertionError(f"{path} launches {by_path[path]} != "
-                                 f"{launches(1, 1, 1)}")
+                                 f"{launches(1, 1, 1, 1)}")
         n_true, n_a = frame_a()[1], xa["roi"].sizes["mark"]
         _say(f"frame A, RANSAC ({scorer}): found {n_a}/{n_true} beads, roi "
              f"{xa['roi'].shape}")
@@ -1685,7 +1780,8 @@ def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
             n_stream = 3
             path = f"beads_stream {n_stream} x A ransac"
             # The RANSAC stream runs the single-frame call frame by frame.
-            with _Launches(by_path, path, kernels, normalize=n_stream):
+            with _Launches(by_path, path, kernels, normalize=n_stream,
+                           beads=n_stream):
                 outs = list(mt.beads_stream([data_a] * n_stream, **kw,
                                             **FRAME_A_KW))
             if len(outs) != n_stream:
@@ -1801,7 +1897,7 @@ def ops_phase(mt, dev, by_path: dict) -> None:
 
     want = {"hysteresis": len(planes) * hyst.LAUNCHES_PER_CALL,
             "ring_corr": len(planes), "perimeter_score": 0,
-            "normalize_u8": 0}
+            "normalize_u8": 0, "bead_ownership": 0}
     if by_path[path] != want:
         raise AssertionError(f"{path} launches {by_path[path]} != {want}")
     for k, (c, s) in enumerate(res):
@@ -1858,7 +1954,7 @@ def basic_phase(mt, dev, golden, by_path: dict) -> None:
 
     data = as_dataarray(mt, "S")
     pipe = frame_s_pipe(mt, device=dev)
-    with _Launches(by_path, "beads S basic_correct", normalize=1):
+    with _Launches(by_path, "beads S basic_correct", normalize=1, beads=1):
         xs = pipe(data=data)
     yx = np.stack([np.asarray(xs.y.values, float),
                    np.asarray(xs.x.values, float)], axis=1)
@@ -2142,7 +2238,7 @@ def run_out_of_core(root: pathlib.Path, dev) -> dict:
         baseline = rss.rss()
         rss.enter("beads: search planes")
         t0 = time.perf_counter()
-        with _Launches(by_path, "beads OOC"), spy(
+        with _Launches(by_path, "beads OOC", beads=1), spy(
                 find.BeadFinder, "_finish_streamed", roi_pass):
             xp = mt.beads(pattern, device=dev, **OOC_KW)
         seconds["beads"] = time.perf_counter() - t0
@@ -2239,7 +2335,7 @@ def disk_paths(mt, dev, golden, by_path: dict, in_memory: dict,
                 path.parent.mkdir(parents=True, exist_ok=True)
                 write_tiff(path, tiles[ci, r, c], ome=False)
     path_b = str(tmp / "b" / "(channel)" / "tile_(row)_(col).tif")
-    with _Launches(by_path, "beads B from files", normalize=1):
+    with _Launches(by_path, "beads B from files", normalize=1, beads=1):
         xf = mt.beads(path_b, device=dev, **FRAME_B_KW)
     if not native.available():
         raise AssertionError(f"native IO library did not build: "
@@ -2584,26 +2680,28 @@ def mesh_phase(mt, dev, golden, by_path: dict, singles: dict,
         return mt.microfluidic_chip(data["C"], pinlist=frame_c_pinlist(),
                                     device=dev, **FRAME_C_KW)
 
+    # (path, case, kernels, run, bead frames)
     runs = (
         ("beads A", "A", DENSE,
-         lambda: mt.beads(data["A"], device=dev, **FRAME_A_KW)),
+         lambda: mt.beads(data["A"], device=dev, **FRAME_A_KW), 1),
         ("beads B", "B", DENSE,
-         lambda: mt.beads(data["B"], device=dev, **FRAME_B_KW)),
-        ("mrbles M", "M", DENSE, lambda: _mrbles(mt, data["M"], dev)),
+         lambda: mt.beads(data["B"], device=dev, **FRAME_B_KW), 1),
+        ("mrbles M", "M", DENSE, lambda: _mrbles(mt, data["M"], dev), 1),
         ("chip_c8", "C8", DENSE,
          lambda: mt.microfluidic_chip(data["C8"], device=dev,
-                                      **FRAME_C8_KW)),
-        ("chip_c", "C", DENSE, run_c),
+                                      **FRAME_C8_KW), 0),
+        ("chip_c", "C", DENSE, run_c, 0),
         ("beads A ransac", "RA", RANSAC,
-         lambda: mt.beads(data["A"], **ransac_kw, **FRAME_A_KW)),
+         lambda: mt.beads(data["A"], **ransac_kw, **FRAME_A_KW), 1),
     )
     singles = dict(singles, RA=ransac_single)
     timed = {"A": "a", "C": "c"}
     for name, mesh in meshes:
         with use_mesh(mesh):
-            for path, case, kernels, run in runs:
+            for path, case, kernels, run, beads in runs:
                 with _KernelInputs() as seen, \
-                        _Launches(by_path, f"mesh {name} {path}", kernels):
+                        _Launches(by_path, f"mesh {name} {path}", kernels,
+                                  beads=beads):
                     out = run()
                 _hold_recorded(
                     f"mesh {name} {path}", seen, records,
@@ -2688,7 +2786,7 @@ def out_of_core_mesh_child(root: pathlib.Path, dev) -> dict:
         t0 = time.perf_counter()
         with use_mesh(make_mesh(b, s, devices=devs)), \
                 _KernelInputs() as seen, \
-                _Launches(by_path, f"mesh {name} beads OOC"):
+                _Launches(by_path, f"mesh {name} beads OOC", beads=1):
             xp = mt.beads(str(root / OOC_PATTERN), device=dev, **OOC_KW)
         seconds = time.perf_counter() - t0
         _hold_recorded(f"mesh {name} beads OOC", seen)
@@ -2712,7 +2810,7 @@ def interactive_phase(mt, dev, by_path: dict, singles: dict) -> None:
     to its call without the UI, the kernel launches counted."""
     from magnify_tpu_torch.plot.vis import InteractiveUI
 
-    with _Launches(by_path, "beads A interactive"):
+    with _Launches(by_path, "beads A interactive", beads=1):
         xa = mt.beads(as_dataarray(mt, "A"), interactive=True, device=dev,
                       **FRAME_A_KW)
     _assert_same_frame("beads A interactive", xa, singles["A"])
@@ -2762,7 +2860,8 @@ def main(argv) -> int:
             _say("  ptxas:", line.strip())
 
     dev = torch.device("cuda")
-    records = kernel_phase(dev) + [_normalize_record(dev)]
+    records = kernel_phase(dev) + [_normalize_record(dev),
+                                   _ownership_record(dev)]
     if "--kernels-only" in argv:
         _say(json.dumps({"kernels": records}))
         return 0

@@ -13,8 +13,10 @@ on one device, with the dense or the RANSAC detector.
   (:func:`magnify_tpu_torch.ops.detect.detect_dense`), then the
   cross-channel dedupe (a circle within ``2 * min_radius`` of a surviving
   circle of an earlier search channel drops);
-* host: ownership fg/bg masks and ROI crops (numpy, copied from the JAX
-  package), and the output coordinates.
+* ownership fg/bg masks on the finder's device
+  (:func:`magnify_tpu_torch.ops.geom.bead_ownership`: on a card its CUDA
+  kernel, on the CPU the JAX package's numpy code; the same bits), host
+  ROI crops and the output coordinates.
 
 Marks come out channel-major and, within a channel, best score first — the
 JAX package's order. With ``detector="ransac"`` each search channel goes
@@ -22,7 +24,7 @@ through :func:`magnify_tpu_torch.ops.detect.detect_ransac` (the JAX
 package's unfused ``BeadFinder.__call__``: ``num_iter`` threefry proposals
 from seed 0, the exact perimeter scorer or, with ``MAGNIFY_TPU_SCORER=conv``,
 the int8 score maps) and the channels are deduped on
-the host by KD-tree; the masks and crops are the same host code. The
+the host by KD-tree; the masks and crops are the same code. The
 interactive UI raises.
 
 A stack larger than :data:`MAX_RESIDENT_BYTES` is processed out of core,
@@ -105,10 +107,6 @@ last_chip_timings: dict = {}
 #: The sampler's grid cell, in pixels (the JAX package's finders pass 20).
 GRID_LENGTH = 20
 
-# Budget for the (pairs, L, L) ownership temporaries.
-_PAIR_CHUNK_BYTES = 32 << 20
-
-
 def _progress(iterable, enabled):
     if not enabled:
         return iterable
@@ -187,65 +185,43 @@ def _cross_channel_dedupe(blocks, dedupe_dist):
     return torch.cat(kept)
 
 
-def _bead_ownership_host(beads, h, w, roi_length, max_radius):
-    """Host fg/bg ownership masks + ROI windows (numpy).
-
-    fg = pixels covered by this bead's disk only, bg = pixels covered by
-    none; disks rasterized from the shared Bresenham extent LUT. Returns
-    (fg (n, L, L), bg, tops, lefts).
-    """
-    n = len(beads)
+def _bead_windows(beads, h, w, roi_length):
+    """The ROI windows' corners (tops, lefts) of ``beads``: L x L around
+    each mark, clamped into the (h, w) image."""
     L = roi_length
-    lut = ops_geom.extent_lut(max_radius)
-    tops = np.clip(beads[:, 0] - L // 2, 0, h - L)
-    lefts = np.clip(beads[:, 1] - L // 2, 0, w - L)
-
-    fg = np.zeros((n, L, L), bool)
-    count = np.zeros((n, L, L), np.int16)
-    if n == 0:
-        return fg, count == 0, tops, lefts
-
-    # Neighbor lists: beads whose disks can reach a window (Chebyshev
-    # distance from bead center to window center <= L/2 + max_radius).
-    tree = scipy.spatial.KDTree(beads[:, :2])
-    win_centers = np.stack([tops + L // 2, lefts + L // 2], axis=1)
-    neighbor_lists = tree.query_ball_point(
-        win_centers, L / 2 + max_radius + 1, p=np.inf)
-
-    arange_l = np.arange(L)
-    pairs_i = np.concatenate(
-        [np.full(len(nb), i, np.int64) for i, nb in enumerate(neighbor_lists)]
-    )
-    pairs_j = np.concatenate(
-        [np.asarray(nb, np.int64) for nb in neighbor_lists]
-    )
-    chunk = max(1, _PAIR_CHUNK_BYTES // max(L * L, 1))
-    for s in range(0, len(pairs_i), chunk):
-        pi = pairs_i[s:s + chunk]
-        pj = pairs_j[s:s + chunk]
-        r = np.clip(beads[pj, 2].astype(np.int64), 0, max_radius)
-        dr = np.abs(tops[pi, None] + arange_l[None, :] - beads[pj, 0][:, None])
-        width = np.where(dr <= r[:, None],
-                         lut[r[:, None], np.minimum(dr, max_radius)], -1)
-        dc = np.abs(lefts[pi, None] + arange_l[None, :]
-                    - beads[pj, 1][:, None])
-        cover = dc[:, None, :] <= width[:, :, None]  # (P, L, L)
-        # pairs_i ascends, so each window's pairs form a contiguous run.
-        ui, starts = np.unique(pi, return_index=True)
-        count[ui] += np.add.reduceat(cover.astype(np.int16), starts, axis=0)
-        self_rows = pi == pj
-        fg[pi[self_rows]] = cover[self_rows]
-
-    fg &= count == 1
-    return fg, count == 0, tops, lefts
+    return (np.clip(beads[:, 0] - L // 2, 0, h - L),
+            np.clip(beads[:, 1] - L // 2, 0, w - L))
 
 
-def _bead_finalize_host(image, beads, roi_length, max_radius):
-    """Host masks + ROI crops: ``image`` (C, T, H, W) numpy. Returns
-    (fg (n, L, L), bg, rois (n, C, T, L, L), tops, lefts)."""
+def _bead_ownership(beads, h, w, roi_length, max_radius, device=None):
+    """Ownership masks and ROI windows of the (n, 3) int marks ``beads``,
+    ``(fg (n, L, L), bg, tops, lefts)``, under the span
+    ``beads.ownership``: the windows' corners from :func:`_bead_windows`,
+    the masks from :func:`magnify_tpu_torch.ops.geom.bead_ownership` on
+    ``device`` (the finder's), which picks the route (the CUDA kernel on a
+    card, the host's numpy pass on the CPU), then one copy back. The marks
+    and corners copied to a card are counted in ``upload_bytes``; the span
+    is then a device span and its host time includes the copy back."""
+    device = torch.device("cpu" if device is None else device)
+    tops, lefts = _bead_windows(beads, h, w, roi_length)
+    host = [np.ascontiguousarray(a, np.int32) for a in (beads, tops, lefts)]
+    with diagnostics.span("beads.ownership", device=device):
+        masks = ops_geom.bead_ownership(
+            *(torch.from_numpy(a).to(device) for a in host), roi_length,
+            max_radius).cpu().numpy().view(bool)
+    if device.type != "cpu":
+        diagnostics.count("upload_bytes", sum(a.nbytes for a in host))
+    return masks[0], masks[1], tops, lefts
+
+
+def _bead_finalize_host(image, beads, roi_length, max_radius, *,
+                        device=None):
+    """Masks + ROI crops: ``image`` (C, T, H, W) numpy; the masks where
+    :func:`_bead_ownership` puts them for ``device``, the crops on the
+    host. Returns (fg (n, L, L), bg, rois (n, C, T, L, L), tops, lefts)."""
     h, w = image.shape[-2:]
     L = roi_length
-    fg, bg, tops, lefts = _bead_ownership_host(beads, h, w, L, max_radius)
+    fg, bg, tops, lefts = _bead_ownership(beads, h, w, L, max_radius, device)
     rois = np.empty((len(beads),) + image.shape[:-2] + (L, L), image.dtype)
     for i in range(len(beads)):
         rois[i] = image[..., tops[i]:tops[i] + L, lefts[i]:lefts[i] + L]
@@ -390,8 +366,9 @@ class BeadFinder:
             return assay
 
         ints = np.round(beads).astype(np.int32)
-        fg1, bg1, tops, lefts = _bead_ownership_host(
-            ints, sizes["im_y"], sizes["im_x"], L, self.max_bead_radius)
+        fg1, bg1, tops, lefts = _bead_ownership(
+            ints, sizes["im_y"], sizes["im_x"], L, self.max_bead_radius,
+            self.device)
         fg[:] = fg1[:, None]
         bg[:] = bg1[:, None]
 
@@ -520,7 +497,8 @@ class BeadFinder:
 
         with diagnostics.span("beads.finalize_host"):
             fg1, bg1, rois, _tops, _lefts = _bead_finalize_host(
-                image_np, beads_i, L, self.max_bead_radius)
+                image_np, beads_i, L, self.max_bead_radius,
+                device=self.device)
         roi = alloc_output("roi", (n, n_ch, n_t, L, L), assay["image"].dtype)
         fg = alloc_output("fg", (n, n_t, L, L), bool)
         bg = alloc_output("bg", (n, n_t, L, L), bool)
@@ -553,11 +531,15 @@ class BeadFinder:
           uint8 normalization and a pinned asynchronous upload run up to
           ``depth`` frames ahead on a producer thread;
         * detection runs on the calling thread, one frame at a time in
-          input order (the hand kernels launch on the calling thread's
+          input order (its hand kernels launch on the calling thread's
           stream, and their launch counters are plain module integers);
         * frame k's masks, ROI crops and ``post`` components run on one
-          worker thread (with a CUDA stream of its own on a card), while
-          the calling thread already detects frame k+1.
+          worker thread (with a CUDA stream of its own on a card, where
+          the masks' kernel launches), while the calling thread already
+          detects frame k+1. That kernel's launch counter is also a plain
+          integer, and only one thread at a time adds to it: the worker
+          alone while frames are pending, and the calling thread only
+          once they are drained (the out-of-core frame below).
 
         A frame above :data:`MAX_RESIDENT_BYTES` is not read ahead: the
         frames before it are finished and yielded, then it runs the

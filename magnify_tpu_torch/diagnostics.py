@@ -45,12 +45,15 @@ The finders' spans (README lists them): ``chip.alloc``,
 ``chip.dispatch``, ``chip.crops_masks``, ``chip.upload``,
 ``chip.find_centers``, ``chip.find_rois``, ``detect.normalize_u8``,
 ``ransac.sampler``, ``beads.upload``, ``beads.detect``,
-``beads.finalize_host``, ``beads.assemble`` and the decode's
-``identify.<stage>``. The counter ``upload_bytes`` sums the bytes of the
-host arrays a finder copies to a card: its search planes (once, where a
-mesh then cuts them into bands) and the tables it hands to the card (the
-grid fit's points per row and column, the chambers' centres or ROI
-corners); the 0-d scalars and PRNG keys the kernels take are not counted.
+``beads.finalize_host``, ``beads.ownership``, ``beads.assemble`` and the
+decode's ``identify.<stage>``. The counter ``upload_bytes`` sums the bytes
+of the host arrays a finder copies to a card: its search planes (once,
+where a mesh then cuts them into bands) and the tables it hands to the
+card (the grid fit's points per row and column, the chambers' centres or
+ROI corners, the beads' marks and ROI corners); the 0-d scalars and PRNG
+keys the kernels take are not counted. ``ownership_device_windows`` and
+``ownership_host_windows`` count the bead windows whose ownership masks
+were made on a card and on the host.
 """
 
 from __future__ import annotations

@@ -12,10 +12,11 @@ checkout to measure (its ``bench_torch/`` and ``magnify_tpu_torch/``):
 with ``--trace 1``, a 30 s budget) and writes the result line's metrics,
 the whole ``breakdown`` (``Trace.breakdown(top=1000)``), the share of the
 named idle time whose gaps have no operator and no program span at their
-middle (operator slot ``-``), ``diagnostics.span_report()`` and
-``counter_report()`` to ``OUT.json``; it prints a summary line and the
-self time of each span a frame. A checkout without the program's span
-store (before it had one) gives the breakdown alone.
+middle (operator slot ``-``), the device's launches by kernel name,
+``diagnostics.span_report()`` and ``counter_report()`` to ``OUT.json``;
+it prints a summary line and the self time of each span a frame. A
+checkout without the program's span store (before it had one) gives the
+breakdown alone.
 
 ``cost`` draws the cell's frames, warms up, then runs ``PAIRS`` pairs of
 calls in one process, each pair one frame of the pool twice, with tracing
@@ -28,6 +29,7 @@ prints one JSON line.
 
 from __future__ import annotations
 
+import collections
 import importlib
 import json
 import os
@@ -56,6 +58,8 @@ def spans(root, cell_name, seed, out_path) -> None:
         kept["full"] = breakdown(self, top=1000)
         kept["magnify_kernels"] = sum(n.startswith("magnify/")
                                       for n, _s, _e in self.kernels)
+        kept["kernel_calls"] = dict(collections.Counter(
+            n for n, _s, _e in self.kernels))
         return breakdown(self, top)
 
     trace.Trace.breakdown = keep
@@ -70,7 +74,8 @@ def spans(root, cell_name, seed, out_path) -> None:
            "device": line["device"], "idle_gaps": gaps,
            "named_idle_s": named, "unnamed_idle_s": unnamed,
            "unnamed_share": unnamed / named if named else None,
-           "magnify_kernels": kept["magnify_kernels"]}
+           "magnify_kernels": kept["magnify_kernels"],
+           "kernel_calls": kept["kernel_calls"]}
     diagnostics = importlib.import_module("magnify_tpu_torch.diagnostics")
     if hasattr(diagnostics, "span_report"):
         out["spans"] = diagnostics.span_report()

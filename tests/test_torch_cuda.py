@@ -12,7 +12,8 @@ the decode's device stages
 (masked reductions, lattice fit, EM, ``identify_mrbles``) against the CPU;
 the frame streams against the single-frame calls; the RANSAC conv scorer,
 the BaSiC fit and ``find_circles``/``find_circles_stack`` against the
-CPU. Without a CUDA device
+CPU; the bead ownership masks against the host's numpy pass. Without a
+CUDA device
 every test skips. On a machine with one (and no JAX), run:
 
     MAGNIFY_TPU_TEST_BACKEND=gpu python -m pytest tests/test_torch_cuda.py -m cuda
@@ -29,6 +30,7 @@ import torch
 from magnify_tpu_torch.components import identify as tid
 from magnify_tpu_torch.ops import detect as tdetect
 from magnify_tpu_torch.ops import edge as tedge
+from magnify_tpu_torch.ops import geom as tgeom
 from magnify_tpu_torch.ops import hysteresis as thyst
 from magnify_tpu_torch.ops import reduce as treduce
 from magnify_tpu_torch.ops import score as tscore
@@ -352,6 +354,68 @@ def test_wrappers_check_types(cuda):
                                torch.zeros((40, 40), device=cuda),
                                torch.zeros((3, 3), dtype=torch.int32,
                                            device=cuda), max_radius=8)
+
+
+def _ownership_case(case):
+    """(marks, h, w, roi_length, max_radius) of a kernel case."""
+    from test_torch_ownership import cell_marks, cluster_marks
+
+    if case == "cell":  # the bead cell's 1,764 marks on 3,688^2
+        return cell_marks(), 3688, 3688, 60, 15
+    if case == "overflow":  # 600 marks meet every window: the list flushes
+        return cluster_marks(3, 600, 100, 120, (0, 15)), 256, 256, 20, 15
+    if case == "chunks":  # L^2 = 9,409: three passes of 4,096 pixels
+        return cluster_marks(4, 60, 0, 400, (0, 30)), 400, 450, 97, 25
+    if case == "odd_length":  # L^2 odd: byte stores
+        return cluster_marks(5, 40, 0, 256, (3, 12)), 256, 256, 33, 9
+    return np.zeros((0, 3)), 256, 256, 60, 15  # "n0"
+
+
+@pytest.mark.parametrize("case", ["cell", "overflow", "chunks", "odd_length",
+                                  "n0"])
+def test_bead_ownership_kernel_matches_host(cuda, case):
+    """The kernel against the wrapper's CPU branch, the host's numpy masks
+    (held to the JAX package's in test_torch_ownership); one launch a
+    call, none for no marks."""
+    from magnify_tpu_torch.components import find
+
+    marks, h, w, L, max_radius = _ownership_case(case)
+    marks = np.asarray(marks, np.int32).reshape(-1, 3)
+    tops, lefts = find._bead_windows(marks, h, w, L)
+    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+            for a in (marks, tops, lefts)]
+    want = tgeom.bead_ownership(*args, L, max_radius)
+    before = tgeom.bead_ownership_launches
+    got = tgeom.bead_ownership(*(a.to(cuda) for a in args), L, max_radius)
+    torch.cuda.synchronize()
+    assert tgeom.bead_ownership_launches - before == int(len(marks) > 0)
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bead_finder_makes_its_masks_on_the_card(cuda, monkeypatch):
+    """A CUDA finder counts every mark in ``ownership_device_windows``, none
+    on the host, launches the kernel once and gives the CPU's masks."""
+    import magnify_tpu_torch as mt
+    from magnify_tpu_torch import diagnostics
+    from test_torch_normalize import _bead_frame
+
+    data = mt.DataArray(_bead_frame(), dims=("channel", "y", "x"),
+                        coords={"channel": ["a", "b"]})
+    kw = dict(min_bead_diameter=10, max_bead_diameter=14, overlap=0)
+    monkeypatch.setenv("MAGNIFY_TPU_TRACE", "1")
+    diagnostics.reset_stages()
+    before = tgeom.bead_ownership_launches
+    got = mt.beads(data, device=cuda, **kw)
+    counters = diagnostics.counter_report()
+    diagnostics.reset_stages()
+    assert tgeom.bead_ownership_launches - before == 1
+    assert counters["ownership_device_windows"] == got.sizes["mark"] == 3
+    assert "ownership_host_windows" not in counters
+    want = mt.beads(data, device="cpu", **kw)
+    for name in ("x", "y", "fg", "bg", "roi"):
+        np.testing.assert_array_equal(np.asarray(got[name].values),
+                                      np.asarray(want[name].values), name)
 
 
 @pytest.mark.parametrize("case", ["single", "two_channel", "tiled"])

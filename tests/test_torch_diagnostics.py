@@ -275,17 +275,21 @@ def test_upload_bytes_counts_the_uploaded_planes(chip_spans, traced):
                           coords={"channel": ["a", "b"]}),
              min_bead_diameter=10, max_bead_diameter=14, overlap=0,
              device="cpu")
+    # A CPU finder makes its 3 marks' ownership masks on the host.
     assert diagnostics.counter_report() == {
-        "upload_bytes": 2 * 2 * 96 * 96, "normalize_u8_device_planes": 2}
+        "upload_bytes": 2 * 2 * 96 * 96, "normalize_u8_device_planes": 2,
+        "ownership_host_windows": 3}
     names = {r.name for r in diagnostics.spans()}
     assert {"beads.upload", "beads.detect", "beads.finalize_host",
-            "beads.assemble", "detect.normalize_u8"} <= names
+            "beads.ownership", "beads.assemble",
+            "detect.normalize_u8"} <= names
 
 
 METRICS = {
     "copy_timesteps_ms": ("chip.copy_timesteps", "seconds", 0.6, 150.0),
     "load_wait_ms": ("chip.load_wait", "seconds", 0.2, 50.0),
     "normalize_u8_ms": ("detect.normalize_u8", "seconds", 1.0, 250.0),
+    "ownership_ms": ("beads.ownership", "seconds", 0.02, 5.0),
     "sampler_device_ms": ("ransac.sampler", "device_seconds", 0.08, 20.0),
 }
 

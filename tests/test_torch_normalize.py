@@ -153,9 +153,12 @@ def test_bead_finder_routes_uint16_planes_to_the_device(traced):
     (xu, cu), (xf, cf) = out[np.uint16], out[np.float32]
     # Two raw uint16 search planes, 2 bytes a pixel; the float32 frame's
     # two uint8 planes, 1 byte a pixel.
+    # The CPU finder's ownership masks of its 3 marks take the host's route.
     assert cu == {"upload_bytes": 2 * 2 * 96 * 96,
-                  "normalize_u8_device_planes": 2}
-    assert cf == {"upload_bytes": 2 * 96 * 96, "normalize_u8_host_planes": 2}
+                  "normalize_u8_device_planes": 2,
+                  "ownership_host_windows": 3}
+    assert cf == {"upload_bytes": 2 * 96 * 96, "normalize_u8_host_planes": 2,
+                  "ownership_host_windows": 3}
     assert xu.sizes["mark"] == 3
     _same_marks(xu, xf, ("x", "y", "fg", "bg"))
 
