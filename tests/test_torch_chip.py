@@ -37,6 +37,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_reference
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
@@ -183,15 +184,8 @@ def _flatten(xp, case):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    import subprocess
-
     path = tmp_path_factory.mktemp("torch_chip_ref") / "ref.npz"
-    env = dict(os.environ, MAGNIFY_TPU_SCORE_QUANT="int8",
-               MAGNIFY_TPU_DETECTOR="dense", JAX_PLATFORMS="cpu",
-               MAGNIFY_TPU_CACHE_DIR=os.path.join(ROOT, ".cache", "test_xla"))
-    subprocess.run([sys.executable, os.path.abspath(__file__), str(path)],
-                   env=env, cwd=ROOT, check=True, timeout=600)
-    return dict(np.load(path))
+    return torch_reference.run(__file__, path)
 
 
 @pytest.fixture(scope="module")
@@ -430,8 +424,7 @@ def test_rotate_component_matches_jax():
 if __name__ == "__main__":
     # The reference run: the JAX package, dense detector, int8 maps, then
     # the RANSAC cases.
-    assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
-    assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
+    torch_reference.check_env()
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import magnify_tpu as mg

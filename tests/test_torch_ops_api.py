@@ -30,12 +30,12 @@ import the planes on a machine without it.
 import inspect
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+import torch_reference
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 
@@ -91,13 +91,7 @@ def run_reference(mg, path):
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("torch_ops_ref") / "ref.npz"
-    env = dict(os.environ, MAGNIFY_TPU_SCORE_QUANT="int8", JAX_PLATFORMS="cpu",
-               MAGNIFY_TPU_CACHE_DIR=os.path.join(ROOT, ".cache", "test_xla"))
-    env.pop("MAGNIFY_TPU_DETECTOR", None)
-    env.pop("MAGNIFY_TPU_SCORER", None)
-    subprocess.run([sys.executable, os.path.abspath(__file__), str(path)],
-                   env=env, cwd=ROOT, check=True, timeout=600)
-    return dict(np.load(path))
+    return torch_reference.run(__file__, path, detector=None)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -334,7 +328,7 @@ def test_profile_writes_a_chrome_trace(tmp_path):
 
 
 if __name__ == "__main__":
-    assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
+    torch_reference.check_env(detector=None)
     sys.path.insert(0, ROOT)
     import magnify_tpu as mg
 

@@ -34,6 +34,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_reference
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 KW = dict(min_bead_diameter=16, max_bead_diameter=24, min_roundness=0.3,
@@ -99,16 +100,7 @@ def stack_dir(tmp_path_factory):
 
 @pytest.fixture(scope="session")
 def reference(stack_dir):
-    import subprocess
-
-    path = stack_dir / "ref.npz"
-    env = dict(os.environ, MAGNIFY_TPU_SCORE_QUANT="int8",
-               MAGNIFY_TPU_DETECTOR="dense", JAX_PLATFORMS="cpu",
-               MAGNIFY_TPU_CACHE_DIR=os.path.join(ROOT, ".cache", "test_xla"))
-    subprocess.run([sys.executable, os.path.abspath(__file__),
-                    str(stack_dir), str(path)],
-                   env=env, cwd=ROOT, check=True, timeout=600)
-    return dict(np.load(path))
+    return torch_reference.run(__file__, stack_dir, stack_dir / "ref.npz")
 
 
 @pytest.fixture
@@ -232,8 +224,7 @@ def test_stream_with_an_oversized_frame_midstream(stack_dir, monkeypatch):
 if __name__ == "__main__":
     # The reference run: the JAX package's out-of-core path, dense detector,
     # int8 maps, on the stack the session wrote.
-    assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
-    assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
+    torch_reference.check_env()
     sys.path.insert(0, ROOT)
     import magnify_tpu as mg
     from magnify_tpu.components import find as jfind

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_reference
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -128,13 +129,7 @@ def serpentine_batch():
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("torch_parallel_ref") / "ref.npz"
-    env = dict(os.environ, MAGNIFY_TPU_SCORE_QUANT="int8",
-               MAGNIFY_TPU_DETECTOR="dense", JAX_PLATFORMS="cpu",
-               MAGNIFY_TPU_CACHE_DIR=os.path.join(ROOT, ".cache", "test_xla"))
-    env.pop("XLA_FLAGS", None)
-    subprocess.run([sys.executable, os.path.abspath(__file__), "reference",
-                    str(path)], env=env, cwd=ROOT, check=True, timeout=600)
-    return dict(np.load(path))
+    return torch_reference.run(__file__, "reference", path)
 
 
 def _write_reference(path):
@@ -641,4 +636,5 @@ if __name__ == "__main__":
     if sys.argv[1] == "worker":
         _worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     else:
+        torch_reference.check_env()
         _write_reference(sys.argv[2])

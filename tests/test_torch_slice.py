@@ -36,6 +36,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_reference
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 KW = dict(min_bead_diameter=16, max_bead_diameter=24, min_roundness=0.3)
@@ -156,15 +157,8 @@ def flatten(xp, case):
 
 @pytest.fixture(scope="session")
 def reference(tmp_path_factory):
-    import subprocess
-
     path = tmp_path_factory.mktemp("torch_slice_ref") / "ref.npz"
-    env = dict(os.environ, MAGNIFY_TPU_SCORE_QUANT="int8",
-               MAGNIFY_TPU_DETECTOR="dense", JAX_PLATFORMS="cpu",
-               MAGNIFY_TPU_CACHE_DIR=os.path.join(ROOT, ".cache", "test_xla"))
-    subprocess.run([sys.executable, os.path.abspath(__file__), str(path)],
-                   env=env, cwd=ROOT, check=True, timeout=600)
-    return dict(np.load(path))
+    return torch_reference.run(__file__, path)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -239,8 +233,7 @@ def test_matches_jax_ransac_conv(reference, case, monkeypatch):
 if __name__ == "__main__":
     # The reference run: the JAX package, dense detector, int8 maps; then
     # its RANSAC detector with the gather scorer and with the conv scorer.
-    assert os.environ.get("MAGNIFY_TPU_SCORE_QUANT") == "int8"
-    assert os.environ.get("MAGNIFY_TPU_DETECTOR") == "dense"
+    torch_reference.check_env()
     sys.path.insert(0, ROOT)
     import magnify_tpu as mg
 
