@@ -42,7 +42,11 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    S's stitched 2 x 3,688^2), bit-equal to the host's
    ``normalize_planes_u8`` and to its plain twin, timed beside both. The
    bead ownership kernel runs at frame S's drawn beads and at the bead
-   cell's 1,764 marks, bit-equal to its CPU branch, timed beside it;
+   cell's 1,764 marks, bit-equal to its CPU branch, timed beside it. The
+   int8 features kernel runs at the padded planes of frames A, B, S and C
+   and the chamber batches of C8 and C, bit-equal to the torch chain on the
+   card, timed beside it (bound 17 bytes a pixel; ptxas' registers and
+   spills where this process built the library);
 3. main paths, each driven with the kernels' launch counts set to 0 just
    before and read just after; every dense path must have launched
    hysteresis and ring_corr, every RANSAC path hysteresis and
@@ -54,7 +58,9 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    frame M (float32, so its planes are normalized on the host); and the
    bead ownership kernel once a bead frame (every ``beads`` and ``mrbles``
    path, their streams, meshes, RANSAC, tuning UI and out-of-core runs)
-   and never in a chip or ``find_circles`` path:
+   and never in a chip or ``find_circles`` path; and the int8 features
+   kernel exactly as often as the ring correlation (on a batch of planes
+   as often), since every score map's features come from it:
 
    * ``beads`` on frame A (1024^2, 110 beads) and frame B (2 channels,
      2 x 2 tiles of 1024^2, overlap 102, stitched to 1844^2) on ``cuda``;
@@ -167,7 +173,11 @@ It builds the CUDA kernels of ``magnify_tpu_torch/csrc`` and then:
    ``_chip`` and ``_beads``, and no batched entry, and bead_ownership's
    ``ms``/``profiler_ms``/``host_ms``/``bound_ms``/``bound_share`` with
    ``_frame_s`` (frame S's drawn beads) and ``_cell`` (the bead cell's
-   1,764 marks on 3,688^2)) and,
+   1,764 marks on 3,688^2); features_q8's has ``ms``/``plain_ms``/
+   ``bound_ms``/``bound_share``/``shape`` at frame A and with
+   ``_frame_b``, ``_rois_c8``, ``_rois_c``, ``_frame_s`` and
+   ``_chip_plane``, ``registers``
+   and ``spill_bytes``, and a batched entry) and,
    last, one JSON line
    ``{"ok": true, "device": {...}}``.
 
@@ -617,9 +627,9 @@ def _bound(n_bytes: int, n_ops: int, ops_per_s: float = INT8_OPS_PER_S):
 
 
 def _stages(img, dev):
-    """Canny masks and padded int8 features of one uint16 plane, on
-    ``dev``, through the port's own stages (the shapes and values the main
-    path sees)."""
+    """Canny masks, padded int8 features and the padded (edges, dx, dy)
+    they are made from, of one uint16 plane, on ``dev``, through the port's
+    own stages (the shapes and values the main path sees)."""
     import torch
     import torch.nn.functional as F
 
@@ -635,15 +645,15 @@ def _stages(img, dev):
     edges = edge.hysteresis(strong, weak)
     pad = 2 * 12
     p = (pad, pad, pad, pad)
-    feats = score.alignment_features_q8(F.pad(edges, p), F.pad(dx, p),
-                                        F.pad(dy, p))
-    return strong, weak, feats
+    inputs = (F.pad(edges, p), F.pad(dx, p), F.pad(dy, p))
+    return strong, weak, score.alignment_features_q8(*inputs), inputs
 
 
 def _roi_stages(img, centers, roi_length, min_radius, max_radius, dev):
-    """Canny masks (N, L, L) and padded int8 features (N, 8, Lp, Lp) of the
-    chamber crops of one uint16 plane around ``centers`` (n, 2), on
-    ``dev``, through the stages of
+    """Canny masks (N, L, L), padded int8 features (N, 8, Lp, Lp) and the
+    padded (edges, dx, dy) they are made from, of the chamber crops of one
+    uint16 plane around ``centers`` (n, 2), on ``dev``, through the stages
+    of
     ``magnify_tpu_torch.ops.detect.detect_rois_dense`` (the shapes and
     values the chip path's refinement sees)."""
     import torch
@@ -668,9 +678,8 @@ def _roi_stages(img, centers, roi_length, min_radius, max_radius, dev):
     edges = edge.hysteresis(strong, weak)
     pad = 2 * max_radius
     p = (pad, pad, pad, pad)
-    feats = score.alignment_features_q8(F.pad(edges, p), F.pad(dx, p),
-                                        F.pad(dy, p))
-    return strong, weak, feats
+    inputs = (F.pad(edges, p), F.pad(dx, p), F.pad(dy, p))
+    return strong, weak, score.alignment_features_q8(*inputs), inputs
 
 
 def _frame_b_plane() -> np.ndarray:
@@ -1272,26 +1281,102 @@ def _ownership_record(dev) -> dict:
     return rec
 
 
+def _ptxas(kernel: str) -> dict:
+    """Registers and spill bytes of the kernel whose mangled name holds
+    ``kernel``, from the ptxas report of this process's build (empty where
+    the library came from the cache)."""
+    import re
+
+    from magnify_tpu_torch import _build
+
+    out, inside = {}, False
+    for line in _build.last_build.get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and "spill stores" in line:
+            out["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif inside and "Used" in line and "registers" in line:
+            out["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+            inside = False
+    return out
+
+
+def _features_record(dev, cases: dict) -> dict:
+    """The int8 features kernel at the padded planes the dense paths give
+    it (``cases``: {key suffix: (edges, dx, dy)}; frame A's 1072^2, frame
+    B's 1892^2, the chamber batches of C8 (64 x 136^2) and C (1,568 x
+    132^2), frame S's 3,736^2 and frame C's plane, 7,235 x 6,803, whose odd
+    width puts most channels off a 4-byte boundary): bit-equal to the torch chain on the card,
+    one launch a call, then timed with CUDA events over 100 calls (the
+    torch chain over 3) against its bound: 17 bytes a pixel (the edge byte
+    and two floats read, 8 int8 channels written)."""
+    import torch
+
+    from magnify_tpu_torch.ops import score
+
+    rec = {"name": "features_q8", "route": "CUDA",
+           "source": "magnify_tpu_torch/csrc/features_q8.cu",
+           "replaces": "magnify_tpu/ops/score.py:498 _alignment_features "
+                       "(grads, int8) with :478 _cs2_from_grads (an XLA "
+                       "fusion); the port's torch chain "
+                       "alignment_features_q8_plain",
+           "launches_per_call": 1, "bound_by": "bytes", "max_abs_err": 0,
+           **_ptxas("features_q8")}
+    for sfx, (edges, dx, dy) in cases.items():
+        before = score.features_q8_launches
+        got = score.features_q8(edges, dx, dy)
+        torch.cuda.synchronize()
+        if score.features_q8_launches - before != 1:
+            raise AssertionError("features_q8 did not launch its kernel once")
+        if not torch.equal(got, score.alignment_features_q8_plain(edges, dx,
+                                                                  dy)):
+            raise AssertionError(f"features_q8 != the torch chain at "
+                                 f"{tuple(edges.shape)}")
+        del got
+        px = edges.numel()
+        ms = _event_ms(lambda: score.features_q8(edges, dx, dy), 100)
+        plain_ms = _event_ms(
+            lambda: score.alignment_features_q8_plain(edges, dx, dy), 3)
+        bound_ms, _by = _bound(17 * px, 0)
+        rec.update({f"ms{sfx}": round(ms, 4),
+                    f"plain_ms{sfx}": round(plain_ms, 4),
+                    f"bound_ms{sfx}": round(bound_ms, 5),
+                    f"bound_share{sfx}": round(bound_ms / ms, 4),
+                    f"shape{sfx}": list(edges.shape)})
+        _say(f"features_q8 at {tuple(edges.shape)}: bit-equal; kernel "
+             f"{ms:.4f} ms, bound {bound_ms:.5f} ms "
+             f"({100 * bound_ms / ms:.1f}%), torch chain {plain_ms:.4f} ms")
+    _say(f"features_q8 ptxas: {_ptxas('features_q8') or 'cached build'}")
+    return rec
+
+
 def kernel_phase(dev) -> list:
-    strong_a, weak_a, feats_a = _stages(frame_a()[0], dev)
-    strong_b, weak_b, feats_b = _stages(_frame_b_plane(), dev)
-    strong_o, weak_o, feats_o = _stages(ooc_base()[0], dev)
-    strong_s, weak_s, feats_s = _stages(_frame_s_plane(), dev)
+    strong_a, weak_a, feats_a, in_a = _stages(frame_a()[0], dev)
+    strong_b, weak_b, feats_b, in_b = _stages(_frame_b_plane(), dev)
+    strong_o, weak_o, feats_o, _in_o = _stages(ooc_base()[0], dev)
+    strong_s, weak_s, feats_s, in_s = _stages(_frame_s_plane(), dev)
     # The chamber crops the chip path refines: around the drawn centers, at
     # the default ROI length 72 and each frame's radii.
     c8_centers = np.array([[(i + 1) * 100, (j + 1) * 100]
                            for i in range(C8_GRID[0])
                            for j in range(C8_GRID[1])])
-    s8, w8, f8 = _roi_stages(frame_c8(), c8_centers, 72, 8, 16, dev)
+    s8, w8, f8, in_c8 = _roi_stages(frame_c8(), c8_centers, 72, 8, 16, dev)
     stack_c, centers_c, _blank = frame_c()
-    sc, wc, fc = _roi_stages(stack_c[0], centers_c.reshape(-1, 2), 72, 4, 15,
-                             dev)
+    sc, wc, fc, in_c = _roi_stages(stack_c[0], centers_c.reshape(-1, 2), 72,
+                                   4, 15, dev)
+    in_cp = _stages(stack_c[0], dev)[3]
+    features = _features_record(dev, {"": in_a, "_frame_b": in_b,
+                                      "_rois_c8": in_c8, "_rois_c": in_c,
+                                      "_frame_s": in_s, "_chip_plane": in_cp})
+    del in_a, in_b, in_c8, in_c, in_s, in_cp
     return [_hysteresis_record(dev, ((strong_a, weak_a), (strong_b, weak_b),
                                      (strong_o, weak_o), (strong_s, weak_s)),
                                {"C8": (s8, w8), "C": (sc, wc)}),
             _ring_corr_record(dev, (feats_a, feats_b, feats_o, feats_s),
                               {"C8": (f8, (8, 16)), "C": (fc, (4, 15))}),
-            _perimeter_record(dev)]
+            _perimeter_record(dev), features]
 
 
 def _check_case(case: str, xp, golden) -> None:
@@ -1342,9 +1427,9 @@ def _assert_same_frame(what: str, out, ref) -> None:
                                  "single-frame call")
 
 
-DENSE = ("hysteresis", "ring_corr")
+DENSE = ("hysteresis", "ring_corr", "features_q8")
 RANSAC = ("hysteresis", "perimeter_score")
-CONV = ("hysteresis", "ring_corr")  # RANSAC with the conv scorer
+CONV = DENSE  # RANSAC with the conv scorer
 
 
 #: Kernels with no batched-launch counter: one call normalizes a batch of
@@ -1356,8 +1441,10 @@ UNBATCHED = ("normalize_u8", "bead_ownership")
 class _Launches:
     """The kernels' launch counts over one path: zeroed on entry, read and
     checked on exit: each kernel of ``kernels`` must have launched, the
-    uint8 normalization exactly ``normalize`` calls' worth and the bead
-    ownership kernel exactly ``beads`` times (once a bead frame)."""
+    uint8 normalization exactly ``normalize`` calls' worth, the bead
+    ownership kernel exactly ``beads`` times (once a bead frame) and the
+    int8 features kernel exactly as often as the ring correlation, on a
+    batch as often (every score map's features come from it)."""
 
     def __init__(self, by_path: dict, path: str, kernels=DENSE,
                  normalize: int = 0, beads: int = 0):
@@ -1369,6 +1456,8 @@ class _Launches:
             "ring_corr": (score, "launches", "batched_launches"),
             "perimeter_score": (score, "perimeter_launches",
                                 "perimeter_batched_launches"),
+            "features_q8": (score, "features_q8_launches",
+                            "features_q8_batched_launches"),
             "normalize_u8": (edge, "normalize_u8_launches", None),
             "bead_ownership": (geom, "bead_ownership_launches", None)}
         self.by_path, self.path, self.kernels = by_path, path, kernels
@@ -1404,6 +1493,11 @@ class _Launches:
                 raise AssertionError(f"{self.path} launched {name} "
                                      f"{counts[name]} times, its route "
                                      f"{want}")
+        if (counts["features_q8"], batched["features_q8_batched"]) != (
+                counts["ring_corr"], batched["ring_corr_batched"]):
+            raise AssertionError(f"{self.path}: features_q8 launched "
+                                 f"{counts['features_q8']} times, ring_corr "
+                                 f"{counts['ring_corr']}")
         self.by_path[self.path] = counts
         self.by_path.setdefault("_batched", {})[self.path] = batched
         return False
@@ -1604,7 +1698,8 @@ def chip_paths(mt, dev, golden, by_path: dict, results: dict) -> dict:
     # --- C8 and its variant: the golden file and the CPU -----------------
     # A chip makes no bead ownership masks.
     per_channel = {"hysteresis": 2 * hyst.LAUNCHES_PER_CALL, "ring_corr": 2,
-                   "perimeter_score": 0, "bead_ownership": 0}
+                   "features_q8": 2, "perimeter_score": 0,
+                   "bead_ownership": 0}
     # One normalization of all search planes of the searched timestep.
     per_timestep = {"normalize_u8": edge.NORMALIZE_U8_LAUNCHES_PER_CALL}
     for case, path, n_search in (("C8", "chip_c8", 1),
@@ -1748,6 +1843,7 @@ def ransac_paths(mt, dev, golden, by_path: dict, ref_ms: dict,
         frames' ownership masks."""
         return {"hysteresis": calls * hyst_call,
                 "ring_corr": calls if conv else 0,
+                "features_q8": calls if conv else 0,
                 "perimeter_score": 0 if conv else scorer_launches,
                 "normalize_u8": normalize
                 * edge.NORMALIZE_U8_LAUNCHES_PER_CALL,
@@ -1896,7 +1992,8 @@ def ops_phase(mt, dev, by_path: dict) -> None:
     from magnify_tpu_torch.ops import hysteresis as hyst
 
     want = {"hysteresis": len(planes) * hyst.LAUNCHES_PER_CALL,
-            "ring_corr": len(planes), "perimeter_score": 0,
+            "ring_corr": len(planes), "features_q8": len(planes),
+            "perimeter_score": 0,
             "normalize_u8": 0, "bead_ownership": 0}
     if by_path[path] != want:
         raise AssertionError(f"{path} launches {by_path[path]} != {want}")
@@ -2644,8 +2741,8 @@ def mesh_phase(mt, dev, golden, by_path: dict, singles: dict,
               for name, b, s, devs in _mesh_names(n_cards)]
     _say(f"mesh phase: {n_cards} card(s) visible; meshes "
          f"{[name for name, _m in meshes]}")
-    strong_a, weak_a, _f = _stages(frame_a()[0], dev)
-    strong_c, weak_c, _f = _stages(frame_c()[0][0], dev)
+    strong_a, weak_a, *_f = _stages(frame_a()[0], dev)
+    strong_c, weak_c, *_f = _stages(frame_c()[0][0], dev)
     serp = [torch.as_tensor(m).to(dev) for m in _vertical_serpentine()]
     cases = (("frame A's masks", strong_a, weak_a),
              ("frame C's plane", strong_c, weak_c),

@@ -35,6 +35,7 @@ last_build: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of each exported function: (argtypes, restype).
 _SIGNATURES = {
     "mg_hysteresis": ([_P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
@@ -44,6 +45,7 @@ _SIGNATURES = {
                             _I, _I, _P, _P], _I),
     "mg_normalize_u8": ([_P, _I, _I, _I, _P, _P, _P], _I),
     "mg_bead_ownership": ([_P, _P, _P, _P, _I, _I, _I, _P, _P], _I),
+    "mg_features_q8": ([_P, _P, _P, _I, _L, _P, _P], _I),
     "mg_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -9,11 +9,13 @@ with a ring kernel per radius. Torch port of the int8, unfolded (s2d = 1)
 form of ``magnify_tpu.ops.score.score_maps``; the int8 maps do not depend
 on the space-to-depth fold, so the fold is not carried over.
 
-The ring kernels are built by numpy code copied from the JAX package and
-are array-equal to its tables (harmonics k <= 7, the JAX default). The
-correlation itself is the CUDA kernel ``csrc/ring_corr.cu`` for CUDA
-tensors and a float ``conv2d`` in a type where it is exact on int8 values
-for CPU tensors.
+The int8 features are the CUDA kernel ``csrc/features_q8.cu`` for CUDA
+tensors and a torch chain for CPU tensors (:func:`alignment_features_q8`
+picks the route). The ring kernels are built by numpy code copied from the
+JAX package and are array-equal to its tables (harmonics k <= 7, the JAX
+default). The correlation itself is the CUDA kernel ``csrc/ring_corr.cu``
+for CUDA tensors and a float ``conv2d`` in a type where it is exact on int8
+values for CPU tensors.
 
 The RANSAC detector (``magnify_tpu.ops.score.dedupe_circles`` and
 ``score_circles``) rounds its proposals to (row, col, radius) triples,
@@ -34,11 +36,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from magnify_tpu_torch import _build, utils
+from magnify_tpu_torch import _build, diagnostics, utils
 from magnify_tpu_torch.ops.edge import fma_f32
 
-__all__ = ["RASTER_KEY_LIMIT", "RingWeights", "circle_keys", "decode_keys",
-           "dedupe_circles", "gather_map_scores",
+__all__ = ["RASTER_KEY_LIMIT", "RingWeights", "alignment_features_q8",
+           "alignment_features_q8_plain", "circle_keys", "decode_keys",
+           "dedupe_circles", "features_q8", "gather_map_scores",
            "perimeter_plan", "perimeter_score", "raster_key_space", "ring_corr",
            "ring_corr_plain", "ring_weights", "score_circles",
            "score_circles_plain", "score_maps", "spread_lanes", "sum_form"]
@@ -54,6 +57,10 @@ batched_launches = 0
 perimeter_launches = 0
 #: Those of them that scored circles on a batch of planes.
 perimeter_batched_launches = 0
+#: Kernel launches of :func:`features_q8` since the count was last reset.
+features_q8_launches = 0
+#: Those of them that made the features of a batch of planes.
+features_q8_batched_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,10 +278,11 @@ def _cs2_from_grads(dx, dy):
     return c1, s1
 
 
-def alignment_features_q8(edges, dx, dy) -> torch.Tensor:
+def alignment_features_q8_plain(edges, dx, dy) -> torch.Tensor:
     """int8 per-harmonic (edge*cos(2ka), edge*sin(2ka)) channels,
-    ``round(127 * feature)``: the ``qdtype="int8"`` form of
-    ``magnify_tpu.ops.score._alignment_features`` with ``grads=(dx, dy)``.
+    ``round(127 * feature)``, in torch on any device: the ``qdtype="int8"``
+    form of ``magnify_tpu.ops.score._alignment_features`` with ``grads=(dx,
+    dy)``, and the twin of :func:`features_q8`.
 
     The cos/sin(2ka) recurrence ``c' = c*c1 - s*s1``, ``s' = s*c1 + c*s1``
     rounds as the reference's compiled program does: the first product of
@@ -293,6 +301,68 @@ def alignment_features_q8(edges, dx, dy) -> torch.Tensor:
         ck, sk = fma_f32(ck, c1, -(sk * s1)), fma_f32(sk, c1, ck * s1)
     # Channels before the plane: (8, H, W), or (N, 8, H, W) for a batch.
     return torch.round(torch.stack(feats, dim=-3) * 127.0).to(torch.int8)
+
+
+def features_q8(edges, dx, dy) -> torch.Tensor:
+    """The CUDA kernel ``csrc/features_q8.cu``: the features of
+    :func:`alignment_features_q8_plain`, bit for bit, in one launch on the
+    current stream (none for an empty plane), no host sync. ``edges`` bool,
+    ``dx``/``dy`` float32, all of one shape (..., H, W) on one CUDA device;
+    returns (..., 8, H, W) int8."""
+    global features_q8_launches, features_q8_batched_launches
+    dev = edges.device
+    if dev.type != "cuda":
+        raise ValueError(f"features_q8: unsupported device {dev}")
+    for name, t in (("dx", dx), ("dy", dy)):
+        if t.device != dev or t.shape != edges.shape:
+            raise ValueError(f"features_q8: {name} {tuple(t.shape)} on "
+                             f"{t.device}, edges {tuple(edges.shape)} on "
+                             f"{dev}")
+    if edges.dtype != torch.bool or dx.dtype != torch.float32 or (
+            dy.dtype != torch.float32):
+        raise TypeError("features_q8: bool edges and f32 gradients "
+                        f"required, got {edges.dtype}, {dx.dtype}, "
+                        f"{dy.dtype}")
+    if edges.ndim < 2:
+        raise ValueError("features_q8: planes (..., H, W) required, got "
+                         f"{tuple(edges.shape)}")
+    lead, (h, w) = edges.shape[:-2], edges.shape[-2:]
+    planes = int(np.prod(lead, dtype=np.int64))
+    out = torch.empty(lead + (8, h, w), dtype=torch.int8, device=dev)
+    if out.numel() == 0:
+        return out
+    if planes >= 2**31 or h * w >= 2**40:
+        raise ValueError(f"features_q8: {planes} planes of {h}x{w} exceed "
+                         "the launch grid")
+    edges_u8 = edges.contiguous().view(torch.uint8)
+    dx, dy = dx.contiguous(), dy.contiguous()
+    with torch.cuda.device(dev):  # the launch goes to the tensors' card
+        err = _build.load().mg_features_q8(
+            edges_u8.data_ptr(), dx.data_ptr(), dy.data_ptr(), planes, h * w,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    features_q8_launches += 1
+    features_q8_batched_launches += int(edges.ndim > 2)
+    _build.check(err, "mg_features_q8")
+    return out
+
+
+def alignment_features_q8(edges, dx, dy) -> torch.Tensor:
+    """int8 per-harmonic (edge*cos(2ka), edge*sin(2ka)) channels of the
+    padded planes: (H, W) -> (8, H, W), or a batch (N, H, W) -> (N, 8, H,
+    W) (see :func:`alignment_features_q8_plain`).
+
+    The one place that picks the route, by the tensors' device: CUDA tensors
+    take the kernel (:func:`features_q8`), their pixels counted in
+    ``features_q8_device_px``; CPU tensors take the torch chain, counted in
+    ``features_q8_host_px``. Either way the call is the span
+    ``score.features_q8``, on the card a device span."""
+    px = edges.numel()
+    with diagnostics.span("score.features_q8", device=edges.device):
+        if edges.device.type == "cpu":
+            diagnostics.count("features_q8_host_px", px)
+            return alignment_features_q8_plain(edges, dx, dy)
+        diagnostics.count("features_q8_device_px", px)
+        return features_q8(edges, dx, dy)
 
 
 def score_maps(edges, dx, dy, *, min_radius: int, max_radius: int):

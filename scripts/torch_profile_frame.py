@@ -286,7 +286,7 @@ def main(argv) -> int:
     weights, _ = score._cached_tables(8, 12, str(dev))
     for name, img in (("frame A", cs.frame_a()[0]),
                       ("frame B", cs._frame_b_plane())):
-        strong, weak, feats = cs._stages(img, dev)
+        strong, weak, feats, _inputs = cs._stages(img, dev)
         for tile_rows in (8, 16, 32, 64, 128):
             kernel_times(f"hysteresis {name} {tuple(strong.shape)} "
                          f"tile_rows={tile_rows}",

@@ -10,7 +10,8 @@ checkout to measure (its ``bench_torch/`` and ``magnify_tpu_torch/``):
 
 ``spans`` makes one traced run of the cell (``bench_torch.run.run_cell``
 with ``--trace 1``, a 30 s budget) and writes the result line's metrics,
-the whole ``breakdown`` (``Trace.breakdown(top=1000)``), the share of the
+the whole ``breakdown`` (``Trace.breakdown(top=1000)``: device time by
+kernel and idle gaps by name), the share of the
 named idle time whose gaps have no operator and no program span at their
 middle (operator slot ``-``), the device's launches by kernel name,
 ``diagnostics.span_report()`` and ``counter_report()`` to ``OUT.json``;
@@ -72,6 +73,7 @@ def spans(root, cell_name, seed, out_path) -> None:
            "frames": line["attempted"],
            "metrics": {k: v["value"] for k, v in line["metrics"].items()},
            "device": line["device"], "idle_gaps": gaps,
+           "device_ops": kept["full"]["device_ops"],
            "named_idle_s": named, "unnamed_idle_s": unnamed,
            "unnamed_share": unnamed / named if named else None,
            "magnify_kernels": kept["magnify_kernels"],

@@ -12,9 +12,9 @@ the decode's device stages
 (masked reductions, lattice fit, EM, ``identify_mrbles``) against the CPU;
 the frame streams against the single-frame calls; the RANSAC conv scorer,
 the BaSiC fit and ``find_circles``/``find_circles_stack`` against the
-CPU; the bead ownership masks against the host's numpy pass. Without a
-CUDA device
-every test skips. On a machine with one (and no JAX), run:
+CPU; the bead ownership masks against the host's numpy pass; the int8
+alignment features against the torch chain on the card. Without a CUDA
+device every test skips. On a machine with one (and no JAX), run:
 
     MAGNIFY_TPU_TEST_BACKEND=gpu python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -354,6 +354,93 @@ def test_wrappers_check_types(cuda):
                                torch.zeros((40, 40), device=cuda),
                                torch.zeros((3, 3), dtype=torch.int32,
                                            device=cuda), max_radius=8)
+    e = torch.zeros((8, 8), dtype=torch.bool, device=cuda)
+    g = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(TypeError):
+        tscore.features_q8(e.to(torch.uint8), g, g)
+    with pytest.raises(TypeError):
+        tscore.features_q8(e, g.double(), g)
+    for bad in ((e, g[:4], g), (e, g.cpu(), g), (e[0], g[0], g[0])):
+        with pytest.raises(ValueError):
+            tscore.features_q8(*bad)
+
+
+def _feature_planes(case):
+    """(edges bool, dx f32, dy f32) numpy planes of a features case."""
+    rng = np.random.default_rng(1)
+    shapes = {"random_gradients": (512, 512), "bead_plane": (3748, 3748),
+              "chamber_batch": (1568, 132, 132), "extremes": (64, 96),
+              "odd_width": (37, 41), "width_1": (9, 1), "one_pixel": (1, 1),
+              "odd_batch": (3, 17, 19), "two_lead_dims": (2, 3, 10, 6),
+              "empty_batch": (0, 8, 8), "empty_rows": (0, 5)}
+    shape = shapes[case]
+    if case == "random_gradients":
+        # test_torch_score.py's plane: integer Scharr-range gradients, on
+        # which two-rounding arithmetic flips int8 features.
+        dx = rng.integers(-4080, 4081, shape).astype(np.float32)
+        dy = rng.integers(-4080, 4081, shape).astype(np.float32)
+        dx[::7, ::5] = 0.0
+        dy[::7, ::5] = 0.0
+        return np.ones(shape, bool), dx, dy
+    if case == "extremes":
+        vals = np.array([0.0, -0.0, 1.0, -1.0, 4080.0, 1e-45, -1e-45, 3e-45,
+                         1e-40, 2.5e-39, 1.2e-38, 1e-22, 3e-22, 1e19, -1e20,
+                         1e30, 3.4e38, -3.4e38], np.float32)
+        dx = rng.choice(vals, shape).astype(np.float32)
+        dy = rng.choice(vals, shape).astype(np.float32)
+        dx[:, :8] = 0.0
+        dy[:, :4] = 0.0  # zero gradients, and zero against each value
+        return rng.random(shape) < 0.7, dx, dy
+    dx = rng.integers(-4080, 4081, shape).astype(np.float32)
+    dy = rng.integers(-4080, 4081, shape).astype(np.float32)
+    return rng.random(shape) < 0.3, dx, dy
+
+
+@pytest.mark.parametrize("case,offset", [
+    (case, offset)
+    for case in ("random_gradients", "extremes", "odd_width", "width_1",
+                 "one_pixel", "odd_batch", "two_lead_dims", "empty_batch",
+                 "empty_rows")
+    for offset in (0, 1, 3)] + [("bead_plane", 0), ("chamber_batch", 0)])
+def test_features_q8_kernel_matches_the_torch_chain(cuda, case, offset):
+    """The kernel against the torch chain on the card, bit for bit, each
+    input placed ``offset`` elements past an aligned start (a view), in one
+    launch a call (none for an empty tensor)."""
+    planes = _feature_planes(case)
+    views = []
+    for a in planes:
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+        buf = torch.zeros(offset + t.numel(), dtype=t.dtype, device=cuda)
+        buf[offset:] = t.reshape(-1)
+        views.append(buf[offset:].view(t.shape))
+    before = tscore.features_q8_launches
+    got = tscore.features_q8(*views)
+    assert tscore.features_q8_launches - before == int(got.numel() > 0)
+    want = tscore.alignment_features_q8_plain(*views)
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert got.shape == planes[0].shape[:-2] + (8,) + planes[0].shape[-2:]
+    assert torch.equal(got, want)
+
+
+def test_features_q8_route_on_the_card(cuda, monkeypatch):
+    """CUDA tensors take the kernel: their pixels are counted in
+    ``features_q8_device_px``, none on the host, and the span
+    ``score.features_q8`` has a device interval."""
+    from magnify_tpu_torch import diagnostics
+
+    edges, dx, dy = (torch.from_numpy(a).to(cuda)
+                     for a in _feature_planes("odd_batch"))
+    monkeypatch.setenv("MAGNIFY_TPU_TRACE", "1")
+    diagnostics.reset_stages()
+    before = tscore.features_q8_launches
+    got = tscore.alignment_features_q8(edges, dx, dy)
+    torch.cuda.synchronize()
+    counters, report = diagnostics.counter_report(), diagnostics.span_report()
+    diagnostics.reset_stages()
+    assert tscore.features_q8_launches - before == 1
+    assert counters == {"features_q8_device_px": edges.numel()}
+    assert report["score.features_q8"]["device_seconds"] > 0
+    assert torch.equal(got, tscore.alignment_features_q8_plain(edges, dx, dy))
 
 
 def _ownership_case(case):

@@ -275,14 +275,17 @@ def test_upload_bytes_counts_the_uploaded_planes(chip_spans, traced):
                           coords={"channel": ["a", "b"]}),
              min_bead_diameter=10, max_bead_diameter=14, overlap=0,
              device="cpu")
-    # A CPU finder makes its 3 marks' ownership masks on the host.
+    # A CPU finder makes its 3 marks' ownership masks on the host, and the
+    # int8 features of its two search planes, padded by 2 * max_radius
+    # (7), with the torch chain.
     assert diagnostics.counter_report() == {
         "upload_bytes": 2 * 2 * 96 * 96, "normalize_u8_device_planes": 2,
-        "ownership_host_windows": 3}
+        "ownership_host_windows": 3,
+        "features_q8_host_px": 2 * (96 + 4 * 7) ** 2}
     names = {r.name for r in diagnostics.spans()}
     assert {"beads.upload", "beads.detect", "beads.finalize_host",
-            "beads.ownership", "beads.assemble",
-            "detect.normalize_u8"} <= names
+            "beads.ownership", "beads.assemble", "detect.normalize_u8",
+            "score.features_q8"} <= names
 
 
 METRICS = {
@@ -290,6 +293,7 @@ METRICS = {
     "load_wait_ms": ("chip.load_wait", "seconds", 0.2, 50.0),
     "normalize_u8_ms": ("detect.normalize_u8", "seconds", 1.0, 250.0),
     "ownership_ms": ("beads.ownership", "seconds", 0.02, 5.0),
+    "features_q8_ms": ("score.features_q8", "device_seconds", 0.004, 1.0),
     "sampler_device_ms": ("ransac.sampler", "device_seconds", 0.08, 20.0),
 }
 

@@ -153,12 +153,15 @@ def test_bead_finder_routes_uint16_planes_to_the_device(traced):
     (xu, cu), (xf, cf) = out[np.uint16], out[np.float32]
     # Two raw uint16 search planes, 2 bytes a pixel; the float32 frame's
     # two uint8 planes, 1 byte a pixel.
-    # The CPU finder's ownership masks of its 3 marks take the host's route.
+    # The CPU finder's ownership masks of its 3 marks, and the int8
+    # features of its two planes padded by 2 * max_radius (7), take the
+    # host's route.
+    feats = {"ownership_host_windows": 3,
+             "features_q8_host_px": 2 * (96 + 4 * 7) ** 2}
     assert cu == {"upload_bytes": 2 * 2 * 96 * 96,
-                  "normalize_u8_device_planes": 2,
-                  "ownership_host_windows": 3}
+                  "normalize_u8_device_planes": 2, **feats}
     assert cf == {"upload_bytes": 2 * 96 * 96, "normalize_u8_host_planes": 2,
-                  "ownership_host_windows": 3}
+                  **feats}
     assert xu.sizes["mark"] == 3
     _same_marks(xu, xf, ("x", "y", "fg", "bg"))
 
@@ -167,10 +170,13 @@ def test_chip_finder_routes_uint16_planes_to_the_device(traced):
     out = _by_dtype(_run_chip, _chip_frame())
     (xu, cu), (xf, cf) = out[np.uint16], out[np.float32]
     # One search plane, and the grid fit's f32 points per row and column.
+    # The int8 features of the plane and of the 4 chambers' 48^2 crops,
+    # each padded by 2 * max_radius (9), take the host's route.
+    feats = {"features_q8_host_px": (240 + 4 * 9) ** 2 + 4 * (48 + 4 * 9) ** 2}
     assert cu == {"upload_bytes": 2 * 240 * 240 + 4 * 4,
-                  "normalize_u8_device_planes": 1}
+                  "normalize_u8_device_planes": 1, **feats}
     assert cf == {"upload_bytes": 240 * 240 + 4 * 4,
-                  "normalize_u8_host_planes": 1}
+                  "normalize_u8_host_planes": 1, **feats}
     _same_marks(xu, xf, ("x", "y", "fg", "bg", "valid"))
 
 

@@ -87,6 +87,32 @@ def test_random_gradient_features_match():
     np.testing.assert_array_equal(want, got.numpy())
 
 
+def test_cpu_features_take_the_torch_route(monkeypatch):
+    """CPU tensors take the torch chain: their pixels are counted in
+    ``features_q8_host_px``, none on the device, the kernel is never
+    launched, and the call is one span ``score.features_q8`` with no
+    device interval."""
+    from magnify_tpu_torch import diagnostics
+
+    rng = np.random.default_rng(2)
+    edges = _t(rng.random((2, 20, 24)) < 0.5)
+    dx = _t(rng.integers(-4080, 4081, (2, 20, 24)).astype(np.float32))
+    dy = _t(rng.integers(-4080, 4081, (2, 20, 24)).astype(np.float32))
+    monkeypatch.setenv("MAGNIFY_TPU_TRACE", "1")
+    diagnostics.reset_stages()
+    before = tscore.features_q8_launches
+    got = tscore.alignment_features_q8(edges, dx, dy)
+    counters, report = diagnostics.counter_report(), diagnostics.span_report()
+    diagnostics.reset_stages()
+    assert counters == {"features_q8_host_px": 2 * 20 * 24}
+    assert tscore.features_q8_launches == before
+    assert report["score.features_q8"]["calls"] == 1
+    assert report["score.features_q8"]["device_seconds"] is None
+    assert torch.equal(got, tscore.alignment_features_q8_plain(edges, dx, dy))
+    with pytest.raises(ValueError):
+        tscore.features_q8(edges, dx, dy)
+
+
 def test_int8_score_maps_match(planes):
     edges, dx, dy = planes
     want = np.asarray(_jax_maps(edges, dx, dy))
